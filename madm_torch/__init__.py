@@ -1,0 +1,29 @@
+"""madm_torch: the MADM eval pass in PyTorch for an NVIDIA H100.
+
+A port of ``madm_tpu`` (the JAX reference, which stays as it is) that imports
+neither JAX nor ``madm_tpu``.  Its two hand-written CUDA kernels (flash
+attention, the fused sep-ASPP layer) build from ``csrc/`` at first CUDA use;
+CPU tensors take their plain PyTorch twins.
+"""
+
+from __future__ import annotations
+
+from .device import resolve_device
+
+
+def entry(device="cuda", seed: int = 0):
+    """(fn, example_args) for the flagship eval pass on ``device``: full
+    SD-v1.4 MADM in bf16 on seeded random weights and one 512x512 crop
+    (the port's counterpart of ``__graft_entry__.entry``)."""
+    import torch
+
+    from .models.madm import MADM, MADMConfig, init_random_
+
+    dev = resolve_device(device)
+    model = init_random_(MADM(MADMConfig(), device=dev),
+                         torch.Generator(device=dev).manual_seed(seed))
+    images = torch.zeros((1, 512, 512, 3), dtype=torch.float32, device=dev)
+    return model.eval_forward, (images,)
+
+
+__all__ = ["entry", "resolve_device"]

@@ -1,0 +1,120 @@
+"""DAFormer decode head, eval mode (port of ``madm_tpu/models/daformer.py``,
+the shipped sep-ASPP fusion).
+
+per-scale Linear embed -> bilinear resize to the largest scale -> concat ->
+sep-ASPP (dilations 1/6/12/18, eval BN + ReLU) -> 3x3 bottleneck -> 1x1
+conv_seg.  NCHW; mmseg/mmcv parameter names (``embed_layers.<i>.proj``,
+``fuse_layer.aspp_modules.<i>``, ``fuse_layer.bottleneck``, ``conv_seg``).
+This module head is the plain path; ``ops.aspp.aspp_head_forward`` computes
+the same ids with kernel K2.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """NCHW bilinear resize, align_corners=False, no antialias."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
+                         antialias=False)
+
+
+def argmax_classes(logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """First-occurrence argmax over ``dim`` as int32 (ties -> lowest index)."""
+    c = logits.shape[dim]
+    m = logits.amax(dim=dim, keepdim=True)
+    shape = [1] * logits.ndim
+    shape[dim] = c
+    iota = torch.arange(c, device=logits.device, dtype=torch.int32).view(shape)
+    big = torch.tensor(c, device=logits.device, dtype=torch.int32)
+    return torch.where(logits == m, iota, big).amin(dim=dim)
+
+
+class ConvModule(nn.Module):
+    """mmcv ConvModule: bias-free conv -> BN (running statistics) -> ReLU."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1, dilation: int = 1, groups: int = 1):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, padding=dilation * (k // 2), dilation=dilation,
+                              groups=groups, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn = self.bn
+        return F.relu(F.batch_norm(self.conv(x), bn.running_mean, bn.running_var, bn.weight,
+                                   bn.bias, training=False, eps=bn.eps))
+
+
+class DepthwiseSeparableConvModule(nn.Module):
+    """depthwise 3x3 (dilated) ConvModule then pointwise 1x1 ConvModule."""
+
+    def __init__(self, cin: int, cout: int, dilation: int):
+        super().__init__()
+        self.depthwise_conv = ConvModule(cin, cin, 3, dilation=dilation, groups=cin)
+        self.pointwise_conv = ConvModule(cin, cout, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise_conv(self.depthwise_conv(x))
+
+
+class ASPPWrapper(nn.Module):
+    """Separable ASPP (sep=True, no image pool)."""
+
+    def __init__(self, cin: int, channels: int, dilations: Sequence[int]):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        self.aspp_modules = nn.ModuleList([
+            ConvModule(cin, channels, 1) if d == 1
+            else DepthwiseSeparableConvModule(cin, channels, d)
+            for d in self.dilations
+        ])
+        self.bottleneck = ConvModule(len(self.dilations) * channels, channels, 3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bottleneck(torch.cat([m(x) for m in self.aspp_modules], dim=1))
+
+
+class MLP(nn.Module):
+    """mmseg embed: a Linear over channels."""
+
+    def __init__(self, cin: int, embed_dims: int):
+        super().__init__()
+        self.proj = nn.Linear(cin, embed_dims)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW in, NCHW out (stored channels-last)."""
+        return self.proj(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class DAFormerHead(nn.Module):
+    """Logits at the resolution of ``features[in_keys[0]]``."""
+
+    def __init__(self, in_channels: Sequence[int], in_keys: Sequence[str], num_classes: int,
+                 channels: int = 256, embed_dims: int = 256,
+                 dilations: Sequence[int] = (1, 6, 12, 18)):
+        super().__init__()
+        self.in_keys = tuple(in_keys)
+        self.channels, self.embed_dims, self.num_classes = channels, embed_dims, num_classes
+        self.dilations = tuple(dilations)
+        self.embed_layers = nn.ModuleDict(
+            {str(i): MLP(c, embed_dims) for i, c in enumerate(in_channels)}
+        )
+        self.fuse_layer = ASPPWrapper(embed_dims * len(in_channels), channels, dilations)
+        self.conv_seg = nn.Conv2d(channels, num_classes, 1)
+
+    def embeds(self, features: Dict[str, torch.Tensor]) -> list:
+        """Per-scale embeds resized to the first key's resolution (NCHW)."""
+        xs = [features[k] for k in self.in_keys]
+        size = xs[0].shape[2:]
+        return [resize_bilinear(self.embed_layers[str(i)](x), size) for i, x in enumerate(xs)]
+
+    def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        x = self.fuse_layer(torch.cat(self.embeds(features), dim=1))
+        return self.conv_seg(x)
