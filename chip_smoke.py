@@ -5,16 +5,24 @@
 
 Phases (each prints its lines; any failure raises and exits nonzero):
 1. card: name and power limit;
-2. build: the two CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
-3. kernels against their plain twins in bf16 at the eval pass's shapes: max
-   abs error with its tolerance, kernel ms, twin ms, library ms where one
-   PyTorch call computes the same function, and the least time the card
-   could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16);
+2. build: the CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
+3. kernels against their plain twins in bf16 at the main path's shapes (K1
+   and K2 at the eval pass's, K3 at the train step's): max abs error with
+   its tolerance, kernel ms, twin ms, library ms where one PyTorch call
+   computes the same function, and the least time the card could take
+   (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16);
 4. the toy-width model in fp32 (TF32 off): the port on CUDA with kernels
    against the port on CPU with twins, logits and ids;
 5. the flagship config (full SD-v1.4, 512x512, bf16) on seeded random
    weights: eval_forward_ids on [1,512,512,3] and [2,512,512,3] with the
-   kernel launch counts of each pass, ms/crop and peak memory.
+   kernel launch counts of each pass, ms/crop and peak memory;
+6. the toy-width train step in fp32 (TF32 off), shipped TrainConfig: two
+   steps on CUDA (K1, K3) against two on CPU (twins) from the same weights,
+   batches and random draws: losses, grad_norm, gradients, parameters;
+7. the flagship train step (MADMConfig(), shipped TrainConfig) on seeded
+   random weights and synthetic batches through madm_torch.train.loop.train:
+   one warm-up and three steps at B=1 and at B=2, with losses, K1/K3 launch
+   counts, ms/step and peak memory of each.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -22,6 +30,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 
@@ -33,7 +42,15 @@ from madm_torch.device import card_line
 from madm_torch.models.daformer import argmax_classes
 from madm_torch.models.madm import MADM, MADMConfig, init_random_
 from madm_torch.ops.aspp import aspp_fused, aspp_fused_reference
-from madm_torch.ops.flash_attention import attention_reference, flash_attention
+from madm_torch.ops.flash_attention import (
+    attention_backward_reference,
+    attention_reference,
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_forward,
+)
+from madm_torch.train.loop import init_train_state, synthetic_batches, train
+from madm_torch.train.train_step import TrainConfig, make_train_state, sample_draws, train_step
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense tensor-core bf16
@@ -105,6 +122,49 @@ def check_flash(gen):
     return rows
 
 
+def check_flash_bwd(gen):
+    """K3 against its twin at the 8 UNet shapes (the VAE's D=512 never trains),
+    with K1's lse against the fp32 log-sum-exp on the way."""
+    rows = []
+    for sq, sk, h, d, per_pass in FLASH_SHAPES:
+        if d > 160:
+            continue
+        q, k, v = (torch.randn(1, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
+        g = torch.randn(1, sq, h, d, device="cuda", generator=gen).bfloat16()
+        scale = d ** -0.5
+        o, lse = flash_attention_forward(q, k, v, scale)
+        lse_ref = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, -1)
+        lse_err = (lse - lse_ref).abs().max().item()
+        lse_tol = 2.0 ** -8 * max(1.0, lse_ref.abs().max().item())  # q*scale rounded to bf16
+        grads = flash_attention_backward(q, k, v, o, g, lse, scale)
+        torch.cuda.synchronize()
+        refs = attention_backward_reference(q.float(), k.float(), v.float(), g.float(), scale)
+        # dS and P are rounded to bf16 before the products (as on the TPU), q*scale
+        # is rounded to bf16 before the scores: ~2^-9 relative each, summed over
+        # Sq or Sk terms; 2^-6 of each gradient's largest entry bounds it
+        errs = [(x.float() - r).abs().max().item() for x, r in zip(grads, refs)]
+        tols = [2.0 ** -6 * r.abs().max().item() for r in refs]
+        ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, g, lse, scale))
+        plain = cuda_ms(lambda: attention_backward_reference(q, k, v, g, scale))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        gt = g.transpose(1, 2)
+        lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        bnd, by = bound_ms(nbytes, 10 * h * sq * sk * d)
+        row = dict(shape=[1, sq, sk, h, d], per_step=2 * per_pass, max_abs_err=max(errs),
+                   errs=errs, tols=tols, lse_err=lse_err, ms=ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bnd, bound_by=by)
+        log(f"K3 flash_attention_backward [B,Sq,Sk,H,D]=[1,{sq},{sk},{h},{d}] x{2 * per_pass}/step: "
+            + " ".join(f"{n}_err={e:.3e} (tol {t:.3e})" for n, e, t in zip(("dq", "dk", "dv"), errs, tols))
+            + f" K1 lse_err={lse_err:.3e} (tol {lse_tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} bound_ms={bnd:.5f} ({by})")
+        if not (all(e <= t for e, t in zip(errs, tols)) and lse_err <= lse_tol):
+            raise AssertionError(f"K3 at {row['shape']}: errors {errs} over {tols} or lse {lse_err}")
+        rows.append(row)
+    return rows
+
+
 def aspp_inputs(gen, b, h, w):
     def f(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
@@ -167,6 +227,115 @@ def check_toy():
         raise AssertionError("toy-width CUDA path disagrees with the CPU twins")
 
 
+def check_toy_train():
+    """Two shipped-config steps of the toy model, CUDA (kernels) against CPU
+    (twins), fp32 with TF32 off, on the same weights, batches and draws."""
+    tc = TrainConfig()
+    cpu = init_random_(MADM(TOY, device="cpu", trainable=True), torch.Generator().manual_seed(SEED))
+    gpu = MADM(TOY, device="cuda", trainable=True)
+    gpu.load_state_dict(cpu.state_dict())
+    s_cpu, s_gpu = make_train_state(cpu, tc), make_train_state(gpu, tc)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    batches = synthetic_batches(2, TOY.crop_size, TOY.num_classes, gen)
+    named_cpu, named_gpu = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    trained = [n for n, p in named_cpu.items() if p.requires_grad]
+    allowed = {n: torch.zeros_like(named_cpu[n]) for n in trained}
+    b1, b2 = 0.9, 0.999
+    for t in range(2):
+        batch = next(batches)
+        draws = sample_draws(gen, tc, batch["source_label"], TOY.num_classes, cpu.sem_seg_head)
+        m_cpu = train_step(s_cpu, batch, draws=draws)
+        flash_attention.launches = flash_attention_backward.launches = 0
+        m_gpu = train_step(s_gpu, batch, draws=draws)
+        launches = (flash_attention.launches, flash_attention_backward.launches)
+        # losses and grad_norm: fp32, other summation orders (the CPU port
+        # matches the JAX step to 1e-6 relative)
+        worst = max(abs(m_gpu[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items())
+        # gradients via Adam's first moment: a ReLU whose input sits within
+        # fp32 noise of 0 flips on one side only, moving a channel's gradient
+        # by ~1/(pixels); 2e-3 of the largest entry bounds it (measured 4.2e-4
+        # CPU port against JAX)
+        mom = {n: (s_gpu.optimizer.state[named_gpu[n]]["exp_avg"].cpu(),
+                   s_cpu.optimizer.state[named_cpu[n]]["exp_avg"]) for n in trained}
+        mmax = max(c.abs().max().item() for _, c in mom.values())
+        grad_err = max((g - c).abs().max().item() for g, c in mom.values()) / mmax
+        # parameters: each step moves a weight by lr_t * (u + wd * w), u = Adam's
+        # m^/(sqrt(v^) + eps) from each side's own moments; the sides may part by
+        # 1% of lr_t plus lr_t * |u_gpu - u_cpu| per step, plus the fp32 rounding
+        # of the decay and of the step on each side (2 ulp of |w|: at the shipped
+        # lr, 3.35e-7 at step 0, an update is about one ulp of a weight near 1)
+        lr = s_cpu.schedule(t)
+        excess = -math.inf
+        for n in trained:
+            def u(state):
+                st = state.optimizer.state[(named_gpu if state is s_gpu else named_cpu)[n]]
+                m_hat = st["exp_avg"].cpu() / (1 - b1 ** (t + 1))
+                return m_hat / ((st["exp_avg_sq"].cpu() / (1 - b2 ** (t + 1))).sqrt() + 1e-8)
+            ulp2 = 2 * torch.finfo(torch.float32).eps * named_cpu[n].detach().abs()
+            allowed[n] += 1e-2 * lr + lr * (u(s_gpu) - u(s_cpu)).abs() + ulp2
+            diff = (named_gpu[n].detach().cpu() - named_cpu[n].detach()).abs()
+            excess = max(excess, (diff - allowed[n]).max().item())
+        log(f"toy train step {t}: CUDA vs CPU losses/grad_norm max rel err {worst:.3e} (tol 1e-4); "
+            f"gradients (Adam first moment) max err {grad_err:.3e} of the largest (tol 2e-3); "
+            f"parameters within the AdamW bound (max excess {excess:.3e}); "
+            f"CUDA launches K1 {launches[0]}, K3 {launches[1]}; "
+            + " ".join(f"{k}={v:.5f}" for k, v in m_gpu.items()))
+        if not (worst <= 1e-4 and grad_err <= 2e-3 and excess <= 0.0):
+            raise AssertionError(f"toy train step {t}: CUDA disagrees with the CPU twins")
+        if launches != TRAIN_LAUNCHES:
+            raise AssertionError(f"toy train step {t} launched K1 x{launches[0]}, K3 x{launches[1]}; "
+                                 f"expected {TRAIN_LAUNCHES}")
+
+
+# per train step: K1 in 3 backbone passes (teacher, source, mixed) x 34 + 2
+# palette encodes x 1 (the VAE encoder's attention); K3 in 2 grad passes x 32
+# UNet attentions (the VAE runs without a graph)
+TRAIN_LAUNCHES = (3 * 34 + 2, 2 * 32)
+
+
+def run_full_train(card):
+    """The shipped UDA step at full width through the trainer entry point;
+    returns the (K1, K3) launches of the last B=1 step."""
+    t0 = time.perf_counter()
+    cfg, tc = MADMConfig(), TrainConfig()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    state = init_train_state(cfg, tc, device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for p in state.params)
+    log(f"full-width train state: MADMConfig() trainable, seeded random weights, {n_train} "
+        f"trained parameters (fp32 masters, AdamW), built in {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for b in (1, 2):
+        batches = synthetic_batches(b, cfg.crop_size, cfg.num_classes, gen)
+        train(state, batches, steps=1, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        rows, peaks = [], []
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            flash_attention.launches = flash_attention_backward.launches = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = train(state, batches, steps=1, generator=gen)[0]
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            launches = (flash_attention.launches, flash_attention_backward.launches)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            log(f"full-width train B={b} step {state.step}: {ms:.1f} ms, peak memory {peaks[-1]:.2f} GiB; "
+                f"K1 launches {launches[0]}, K3 launches {launches[1]}; " + " ".join(
+                    f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms") + f" [{card}]")
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"non-finite train metrics at B={b}: {m}")
+            if launches != TRAIN_LAUNCHES:
+                raise AssertionError(f"B={b} train step launched K1 x{launches[0]}, K3 x{launches[1]}; "
+                                     f"expected {TRAIN_LAUNCHES}")
+            rows.append(ms)
+            counts[b] = launches
+        log(f"full-width train B={b}: {sum(rows) / 3:.1f} ms/step (mean of 3 after 1 warm-up; "
+            f"{', '.join(f'{r:.1f}' for r in rows)}), peak memory {max(peaks):.2f} GiB [{card}]")
+    return counts[1]
+
+
 def run_full(card):
     cfg = MADMConfig()
     t0 = time.perf_counter()
@@ -222,15 +391,24 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash_rows = check_flash(gen)
+    bwd_rows = check_flash_bwd(gen)
     aspp_rows = check_aspp(gen)
     check_toy()
     k1_launches, k2_launches = run_full(card)
+    check_toy_train()
+    k3_launches = run_full_train(card)[1]
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows)
 
     k1_b, k1_f = (sum(2 * (2 * sq * h * d + 2 * sk * h * d) * n for sq, sk, h, d, n in FLASH_SHAPES),
                   sum(4 * h * sq * sk * d * n for sq, sk, h, d, n in FLASH_SHAPES))
+    def per_step(key):
+        return sum(r[key] * r["per_step"] for r in bwd_rows)
+
+    k3_b = sum((2 * 4 * (sq + sk) * h * d + 4 * h * sq) * 2 * n
+               for sq, sk, h, d, n in FLASH_SHAPES if d <= 160)
+    k3_f = sum(10 * h * sq * sk * d * 2 * n for sq, sk, h, d, n in FLASH_SHAPES if d <= 160)
     kernels_line = {"kernels": [
         {"name": "flash_attention", "route": "cuda", "source": "madm_torch/csrc/flash_attention.cu",
          "replaces": "madm_tpu/ops/flash_attention.py:34", "launches": k1_launches,
@@ -244,6 +422,13 @@ def main() -> int:
          "ms": aspp_rows[0]["ms"], "plain_ms": aspp_rows[0]["plain_ms"],
          "bound_ms": aspp_rows[0]["bound_ms"], "bound_by": aspp_rows[0]["bound_by"],
          "library_ms": None, "per": "one 512x512 crop at B=1", "shapes": aspp_rows},
+        {"name": "flash_attention_backward", "route": "cuda",
+         "source": "madm_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "madm_tpu/ops/flash_attention.py:141", "launches": k3_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+         "ms": per_step("ms"), "plain_ms": per_step("plain_ms"), "bound_ms": per_step("bound_ms"),
+         "bound_by": bound_ms(k3_b, k3_f)[1], "library_ms": per_step("library_ms"),
+         "per": "one train step at B=1", "shapes": bwd_rows},
     ]}
     log(card)
     log(json.dumps(kernels_line))

@@ -1,9 +1,10 @@
-"""madm_torch: the MADM eval pass in PyTorch for an NVIDIA H100.
+"""madm_torch: MADM in PyTorch for an NVIDIA H100 — the single-crop eval
+pass and the shipped UDA train step (``madm_torch.train``).
 
 A port of ``madm_tpu`` (the JAX reference, which stays as it is) that imports
-neither JAX nor ``madm_tpu``.  Its two hand-written CUDA kernels (flash
-attention, the fused sep-ASPP layer) build from ``csrc/`` at first CUDA use;
-CPU tensors take their plain PyTorch twins.
+neither JAX nor ``madm_tpu``.  Its hand-written CUDA kernels (flash attention
+forward and backward, the fused sep-ASPP layer) build from ``csrc/`` at first
+CUDA use; CPU tensors take their plain PyTorch twins.
 """
 
 from __future__ import annotations

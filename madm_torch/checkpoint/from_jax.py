@@ -3,8 +3,11 @@
 The inverse of the torch -> JAX mapping the JAX package's checkpoint
 converter applies (``convert_unet_state``, ``convert_vae_state``,
 ``convert_projections``, ``convert_daformer_head``, ``convert_clip_project``),
-restricted to the modules of the eval pass, so both packages compute the same
-function on the same weights.  Reads nested dicts of arrays (anything
+restricted to the modules the port holds, so both packages compute the same
+function on the same weights.  Besides ``params`` and ``consts`` it carries
+what a JAX ``TrainState`` adds: the EMA teacher tree (``ema``: projections,
+head, ``clip_project_others``) and the BN statistics ``state.head_bn`` and
+``state.ema_head_bn``.  Reads nested dicts of arrays (anything
 ``numpy.asarray`` takes); imports nothing of the JAX package.
 
 Layout transforms (JAX -> torch):
@@ -74,7 +77,8 @@ def _vae(tree: Dict[str, Any], side: str, quant: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def _head(params: Dict[str, Any], stats: Dict[str, Any]) -> Dict[str, np.ndarray]:
+def _head(params: Dict[str, Any], stats: Dict[str, Any],
+          prefix: str = "sem_seg_head") -> Dict[str, np.ndarray]:
     def rename(p: str) -> str:
         m = re.fullmatch(r"embed_(\d+)", p)
         if m:
@@ -82,27 +86,29 @@ def _head(params: Dict[str, Any], stats: Dict[str, Any]) -> Dict[str, np.ndarray
         m = re.fullmatch(r"aspp_(\d+)", p)
         return f"aspp_modules.{m.group(1)}" if m else p
 
-    out = _module_tree(params, "sem_seg_head", rename)
-    out.update(_module_tree(stats, "sem_seg_head", rename))
+    out = _module_tree(params, prefix, rename)
+    out.update(_module_tree(stats, prefix, rename))
     for key in [k for k in out if k.endswith(".running_mean")]:
         out[key[: -len("running_mean")] + "num_batches_tracked"] = np.zeros((), np.int64)
     return out
 
 
-def _projections(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+def _projections(tree: Dict[str, Any], prefix: str = "feature_projections") -> Dict[str, np.ndarray]:
     out = {}
     for name, block in tree.items():
         idx, blk = _PROJ.fullmatch(name).groups()
-        out.update(_module_tree(block, f"feature_projections.{idx}.{blk}",
+        out.update(_module_tree(block, f"{prefix}.{idx}.{blk}",
                                 lambda p: _BOTTLENECK.get(p, p)))
     return out
 
 
 def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """``{'params', 'state', 'consts'}`` of the JAX ``MADM`` (or any part of
-    it) -> {key: float32 CPU tensor} for ``MADM.load_state_dict``.  Subtrees
-    that are absent are skipped, so one module's weights convert alone."""
+    """``{'params', 'ema', 'state', 'consts'}`` of the JAX ``MADM`` or its
+    ``TrainState`` (or any part of them) -> {key: float32 CPU tensor} for
+    ``MADM.load_state_dict``.  Subtrees that are absent are skipped, so one
+    module's weights convert alone."""
     params = variables.get("params", {})
+    state = variables.get("state", {})
     out: Dict[str, np.ndarray] = {}
     if "vae_encoder" in params:
         out.update(_vae(params["vae_encoder"], "encoder", "quant_conv"))
@@ -115,7 +121,15 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     if "projections" in params:
         out.update(_projections(params["projections"]))
     if "head" in params:
-        out.update(_head(params["head"], variables.get("state", {}).get("head_bn", {})))
+        out.update(_head(params["head"], state.get("head_bn", {})))
+    ema = variables.get("ema", {})
+    if "projections" in ema:
+        out.update(_projections(ema["projections"], "ema.feature_projections"))
+    if "head" in ema:
+        out.update(_head(ema["head"], state.get("ema_head_bn", {}), "ema.sem_seg_head"))
+    if "clip_project_others" in ema:
+        out.update({f"ema.clip_project_others.{k}": np.asarray(v, np.float32)
+                    for k, v in ema["clip_project_others"].items()})
     consts = variables.get("consts", {})
     if "uncond_inputs" in consts:
         out["uncond_inputs"] = np.asarray(consts["uncond_inputs"], np.float32)

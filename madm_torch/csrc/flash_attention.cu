@@ -34,6 +34,10 @@
 //   The D=512 single-head VAE attention splits its output columns over 4
 //   blocks of 128 (each recomputes the scores) to keep the accumulator in
 //   registers.
+// Both bodies optionally write the fp32 row log-sum-exp (natural log, of the
+// scaled scores) to lse [B, H, Sq]: the backward kernel K3
+// (flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.  Eval passes
+// hand a null pointer and skip the write.
 // - float32 (the parity path) and any other bf16 input: SIMT fp32 FMA on a
 //   16x16 thread grid, register tiles of RI query rows x CJ keys and RI rows
 //   x DJ head columns;
@@ -51,6 +55,7 @@
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16: tx = key / head-dim lane, ty = query lane
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, s, h;  // element strides of batch, sequence and head; head dim is unit-stride
@@ -73,8 +78,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DPAD, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int sq, int sk, int d, Strides qs, Strides ks, Strides vs,
-                 Strides os, float qscale) {
+                 T* __restrict__ o, float* __restrict__ lse, int nh, int sq, int sk, int d,
+                 Strides qs, Strides ks, Strides vs, Strides os, float qscale) {
   constexpr int RI = BQ / 16;    // query rows per thread
   constexpr int CJ = BK / 16;    // keys per thread (score tile)
   constexpr int DJ = DPAD / 16;  // head-dim columns per thread (output tile)
@@ -207,6 +212,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int c = tx + 16 * j;
       if (c < d) ob[(long long)r * os.s + c] = from_float<T>(acc[i][j] * inv);
     }
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * nh + h) * sq + r] = (m_run[i] + log2f(l_run[i])) * kLn2;
   }
 }
 
@@ -243,9 +250,9 @@ constexpr size_t mma_smem_bytes() {
 template <int DP, int BK, int DO>
 __global__ void __launch_bounds__(32 * kMmaWarps)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int sq,
-                     int sk, int d, Strides qs, Strides ks, Strides vs, Strides os,
-                     float qscale) {
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int nh, int sq, int sk, int d, Strides qs,
+                     Strides ks, Strides vs, Strides os, float qscale) {
   constexpr int LQ = DP + 8, LK = DP + 8, LV = BK + 8;  // 32-bit fragment loads conflict-free
   constexpr int NT = BK / 8;   // score n-tiles per warp
   constexpr int DT = DO / 8;   // output n-tiles per warp
@@ -408,6 +415,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
   const float i0 = 1.f / l0, i1 = 1.f / l1;
   const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
+  if (lse != nullptr && dc == 0 && tg == 0) {  // the row sums are whole on every thread now
+    float* lb = lse + ((long long)b * nh + h) * sq;
+    if (r0 < sq) lb[r0] = (m0 + log2f(l0)) * kLn2;
+    if (r1 < sq) lb[r1] = (m1 + log2f(l1)) * kLn2;
+  }
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
@@ -424,8 +436,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 template <int DP, int BK, int DO>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int b, int sq,
-                       int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                       int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
                        float qscale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DP, BK, DO>();
   auto kern = flash_fwd_mma_kernel<DP, BK, DO>;
@@ -435,14 +447,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, h * (DP / DO), b);
   kern<<<grid, 32 * kMmaWarps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, d, qs, ks,
-      vs, os, qscale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, h, sq, sk, d,
+      qs, ks, vs, os, qscale);
   return cudaGetLastError();
 }
 
 template <typename T, int DPAD, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
-                   int h, int d, Strides qs, Strides ks, Strides vs, Strides os, float qscale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os, float qscale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DPAD, BQ, BK>();
   auto kern = flash_fwd_kernel<T, DPAD, BQ, BK>;
@@ -451,16 +463,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
   kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), static_cast<T*>(o), sq, sk,
-                                         d, qs, ks, vs, os, qscale);
+                                         static_cast<const T*>(v), static_cast<T*>(o), lse, h,
+                                         sq, sk, d, qs, ks, vs, os, qscale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk,
-                     int h, int d, Strides qs, Strides ks, Strides vs, Strides os, float qscale,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                     int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os, float qscale,
                      bool vec16, cudaStream_t st) {
-#define ARGS q, k, v, o, b, sq, sk, h, d, qs, ks, vs, os, qscale, st
+#define ARGS q, k, v, o, lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (vec16) {  // tensor-core body
       if (d <= 48) return launch_mma<48, 64, 48>(ARGS);
@@ -493,10 +505,11 @@ extern "C" {
 
 const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns the
-// cudaError_t of the launch (0 = success); the kernel runs on `stream`.
+// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  lse is null
+// or a contiguous fp32 [B, H, Sq].  Returns the cudaError_t of the launch
+// (0 = success); the kernel runs on `stream`.
 int madm_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                             int b, int sq, int sk, int h, int d,
+                             void* lse, int b, int sq, int sk, int h, int d,
                              long long q_sb, long long q_ss, long long q_sh,
                              long long k_sb, long long k_ss, long long k_sh,
                              long long v_sb, long long v_ss, long long v_sh,
@@ -508,9 +521,11 @@ int madm_flash_attention_fwd(int dtype, const void* q, const void* k, const void
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(q, k, v, o, b, sq, sk, h, d, qs, ks, vs, os, qscale, false, st);
+    err = dispatch<float>(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os,
+                          qscale, false, st);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, d, qs, ks, vs, os, qscale,
+    err = dispatch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks,
+                                  vs, os, qscale,
                                   aligned16(q, qs, d) && aligned16(k, ks, d) && aligned16(v, vs, d), st);
   else
     err = cudaErrorInvalidValue;

@@ -1,2 +1,2 @@
-"""Models of the eval pass: SD-v1.4 VAE/UNet, prompts, projections,
-DAFormer head, and the MADM container."""
+"""Models: SD-v1.4 VAE/UNet, prompts, projections, DAFormer head (eval and
+train mode), and the MADM container with its EMA teacher."""

@@ -1,17 +1,20 @@
-"""DAFormer decode head, eval mode (port of ``madm_tpu/models/daformer.py``,
-the shipped sep-ASPP fusion).
+"""DAFormer decode head (port of ``madm_tpu/models/daformer.py``, the
+shipped sep-ASPP fusion, on the ``ASPPWrapper`` module math).
 
 per-scale Linear embed -> bilinear resize to the largest scale -> concat ->
-sep-ASPP (dilations 1/6/12/18, eval BN + ReLU) -> 3x3 bottleneck -> 1x1
-conv_seg.  NCHW; mmseg/mmcv parameter names (``embed_layers.<i>.proj``,
+sep-ASPP (dilations 1/6/12/18, BN + ReLU) -> 3x3 bottleneck -> Dropout2d ->
+1x1 conv_seg.  NCHW; mmseg/mmcv parameter names (``embed_layers.<i>.proj``,
 ``fuse_layer.aspp_modules.<i>``, ``fuse_layer.bottleneck``, ``conv_seg``).
-This module head is the plain path; ``ops.aspp.aspp_head_forward`` computes
-the same ids with kernel K2.
+Eval BN uses the running statistics.  Train BN (flax semantics) normalises
+by the batch statistics over N, H, W; with ``update_bn`` it folds them into
+the running statistics with momentum 0.9 and the biased variance.  Dropout2d
+takes its channel multiplier from the caller.  This module head is the plain
+path; ``ops.aspp.aspp_head_forward`` computes the same eval ids with kernel K2.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +40,22 @@ def argmax_classes(logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return torch.where(logits == m, iota, big).amin(dim=dim)
 
 
+BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
+
+
+@torch.no_grad()
+def _update_running_stats(bn: nn.BatchNorm2d, y: torch.Tensor) -> None:
+    """Fold y's batch mean and biased variance (fp32 accumulators over the
+    compute-dtype tensor, E[y^2] - E[y]^2 as flax computes them) into the
+    running statistics."""
+    mean = torch.mean(y, dim=(0, 2, 3), dtype=torch.float32)
+    var = (torch.mean(torch.square(y), dim=(0, 2, 3), dtype=torch.float32) - mean * mean).clamp_min(0.0)
+    bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+    bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+
+
 class ConvModule(nn.Module):
-    """mmcv ConvModule: bias-free conv -> BN (running statistics) -> ReLU."""
+    """mmcv ConvModule: bias-free conv -> BN -> ReLU."""
 
     def __init__(self, cin: int, cout: int, k: int = 1, dilation: int = 1, groups: int = 1):
         super().__init__()
@@ -46,10 +63,17 @@ class ConvModule(nn.Module):
                               groups=groups, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, update_bn: bool = False) -> torch.Tensor:
         bn = self.bn
-        return F.relu(F.batch_norm(self.conv(x), bn.running_mean, bn.running_var, bn.weight,
-                                   bn.bias, training=False, eps=bn.eps))
+        y = self.conv(x)
+        if not train:
+            return F.relu(F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                                       training=False, eps=bn.eps))
+        if update_bn:
+            _update_running_stats(bn, y)
+        # batch statistics only: F.batch_norm would fold the unbiased variance
+        # into running statistics handed to it, so it gets none
+        return F.relu(F.batch_norm(y, None, None, bn.weight, bn.bias, training=True, eps=bn.eps))
 
 
 class DepthwiseSeparableConvModule(nn.Module):
@@ -60,8 +84,8 @@ class DepthwiseSeparableConvModule(nn.Module):
         self.depthwise_conv = ConvModule(cin, cin, 3, dilation=dilation, groups=cin)
         self.pointwise_conv = ConvModule(cin, cout, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.pointwise_conv(self.depthwise_conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False, update_bn: bool = False) -> torch.Tensor:
+        return self.pointwise_conv(self.depthwise_conv(x, train, update_bn), train, update_bn)
 
 
 class ASPPWrapper(nn.Module):
@@ -77,8 +101,9 @@ class ASPPWrapper(nn.Module):
         ])
         self.bottleneck = ConvModule(len(self.dilations) * channels, channels, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bottleneck(torch.cat([m(x) for m in self.aspp_modules], dim=1))
+    def forward(self, x: torch.Tensor, train: bool = False, update_bn: bool = False) -> torch.Tensor:
+        branches = [m(x, train, update_bn) for m in self.aspp_modules]
+        return self.bottleneck(torch.cat(branches, dim=1), train, update_bn)
 
 
 class MLP(nn.Module):
@@ -98,8 +123,9 @@ class DAFormerHead(nn.Module):
 
     def __init__(self, in_channels: Sequence[int], in_keys: Sequence[str], num_classes: int,
                  channels: int = 256, embed_dims: int = 256,
-                 dilations: Sequence[int] = (1, 6, 12, 18)):
+                 dilations: Sequence[int] = (1, 6, 12, 18), dropout_ratio: float = 0.1):
         super().__init__()
+        self.dropout_ratio = dropout_ratio  # Dropout2d before conv_seg, train only
         self.in_keys = tuple(in_keys)
         self.channels, self.embed_dims, self.num_classes = channels, embed_dims, num_classes
         self.dilations = tuple(dilations)
@@ -115,6 +141,10 @@ class DAFormerHead(nn.Module):
         size = xs[0].shape[2:]
         return [resize_bilinear(self.embed_layers[str(i)](x), size) for i, x in enumerate(xs)]
 
-    def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
-        x = self.fuse_layer(torch.cat(self.embeds(features), dim=1))
+    def forward(self, features: Dict[str, torch.Tensor], train: bool = False,
+                update_bn: bool = False, dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``dropout``: Dropout2d's channel multiplier [B, channels] (train only)."""
+        x = self.fuse_layer(torch.cat(self.embeds(features), dim=1), train, update_bn)
+        if dropout is not None:
+            x = x * dropout.to(x.dtype)[:, :, None, None]
         return self.conv_seg(x)

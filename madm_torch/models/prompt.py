@@ -48,12 +48,12 @@ def select_domain_params(prompt: nn.ModuleDict, input_modal: str,
     return prompt["clip_project_rgb" if input_modal == "rgb" else "clip_project_others"]
 
 
-def conditioning(prompt: nn.ModuleDict, uncond_prompt: torch.Tensor, input_modal: str,
-                 same_cond_params: bool, batch_size: int,
-                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(prompt [B, 77, 768], residual time embedding [B, 1, D]) for a batch."""
-    p = select_domain_params(prompt, input_modal, same_cond_params)
+def conditioning_of(p: ClipFeatureProject, uncond_prompt: torch.Tensor, batch_size: int,
+                    ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(prompt [B, 77, 768], residual time embedding [B, 1, D]) of one
+    parameter set (a domain's, or the EMA teacher's) for a batch."""
     cp = cond_prompt(p, uncond_prompt)
     ct = cond_time(p)
     return (cp.expand(batch_size, *cp.shape[1:]),
             ct.expand(batch_size, *ct.shape[1:]))
+

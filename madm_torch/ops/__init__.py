@@ -1,2 +1,2 @@
-"""Ops of the eval pass: attention (kernel K1), GroupNorm, the fused
-sep-ASPP layer (kernel K2)."""
+"""Ops: attention (kernels K1 and K3), GroupNorm, the fused sep-ASPP layer
+(kernel K2), the DACS mix and augmentations, palette colours."""

@@ -27,8 +27,10 @@ from .models.madm import MADM, MADMConfig, init_random_
 
 FAMILIES = (  # first match wins; lower-case substrings of kernel names
     ("flash_attention (K1)", ("flash_fwd",)),
+    ("flash_attention_backward (K3)", ("dkdv_", "dq_mma", "dq_simt", "delta_kernel")),
     ("aspp_fused (K2)", ("aspp_fused",)),
-    ("convolution", ("fprop", "conv", "implicit", "winograd", "dgrad")),
+    ("optimizer (multi-tensor)", ("multi_tensor", "adam")),
+    ("convolution", ("fprop", "conv", "implicit", "winograd", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
     ("norm/reduce", ("reduce", "norm", "welford")),
     ("elementwise/copy", ("elementwise", "vectorized", "copy", "cat", "fill", "unrolled")),
@@ -94,10 +96,28 @@ def main() -> None:
     stages = {name: evs[0].elapsed_time(evs[1]) for name, evs in events.items()}
     stages["head (embeds, K2, bottleneck, conv_seg, argmax) and the rest"] = pass_ms - sum(stages.values())
 
+    kernel_ms, fam, top = kernel_breakdown(lambda: model.eval_forward_ids(images))
+    result = {
+        "card": card_line(),
+        "batch": args.batch,
+        "pass_ms_host": host_ms,
+        "pass_ms_device_events": pass_ms,
+        "stages_ms": stages,
+        "profiled_kernel_ms": kernel_ms,
+        "device_idle_share": (1.0 - kernel_ms / pass_ms) if kernel_ms else None,
+        "families_ms": fam,
+        "top_kernels": top,
+    }
+    write_json(result, args.out)
+
+
+def kernel_breakdown(fn, n_top: int = 25):
+    """Run ``fn`` once under ``torch.profiler``: (device kernel ms in all,
+    {family: ms}, the ``n_top`` kernels by time)."""
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
-        model.eval_forward_ids(images)
+        fn()
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
@@ -110,23 +130,18 @@ def main() -> None:
     fam = defaultdict(float)
     for name, (ms, _) in kernels.items():
         fam[_family(name)] += ms
-    kernel_ms = sum(ms for ms, _ in kernels.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
-    result = {
-        "card": card_line(),
-        "batch": args.batch,
-        "pass_ms_host": host_ms,
-        "pass_ms_device_events": pass_ms,
-        "stages_ms": stages,
-        "profiled_kernel_ms": kernel_ms,
-        "device_idle_share": (1.0 - kernel_ms / pass_ms) if kernels else None,
-        "families_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1])),
-        "top_kernels": [{"name": n[:120], "ms": ms, "calls": c} for n, (ms, c) in top],
-    }
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:n_top]
+    return (sum(ms for ms, _ in kernels.values()),
+            dict(sorted(fam.items(), key=lambda kv: -kv[1])),
+            [{"name": n[:120], "ms": ms, "calls": c} for n, (ms, c) in top])
+
+
+def write_json(result, out: str) -> None:
+    """Print ``result`` as JSON and write it to ``out``."""
     text = json.dumps(result, indent=1)
     print(text)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
         f.write(text)
 
 

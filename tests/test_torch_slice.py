@@ -47,7 +47,8 @@ def toy():
     jm = JaxMADM(JaxMADMConfig(**TOY, compute_dtype=jnp.float32))
     variables = jm.init_params(jax.random.PRNGKey(0))
     port = MADM(MADMConfig(**TOY, compute_dtype=torch.float32), device="cpu")
-    port.load_state_dict(state_dict_from_jax(variables), strict=True)
+    eval_vars = {k: v for k, v in variables.items() if k != "ema"}  # an eval model holds no teacher
+    port.load_state_dict(state_dict_from_jax(eval_vars), strict=True)
     images = np.random.default_rng(0).uniform(size=(2, 64, 64, 3)).astype(np.float32)
     logits = np.asarray(jax.jit(jm.eval_forward)(variables, jnp.asarray(images)))
     return jm, variables, port, images, logits
@@ -76,7 +77,7 @@ def test_backbone_features_match_jax(toy):
     jm, variables, port, images, _ = toy
     ref = jax.jit(lambda v, x: jm.backbone_forward(v, x, input_modal="others")["output_features"])(
         variables, jnp.asarray(images))
-    out = port.backbone_forward(images)
+    out = port.backbone_forward(images)["output_features"]
     assert list(out) == ["s0", "s3", "s4", "s5"]
     for name, feat in out.items():
         r = np.asarray(ref[name])
@@ -87,7 +88,7 @@ def test_backbone_features_match_jax(toy):
 def test_state_dict_round_trips_through_the_jax_converter(toy):
     """JAX tree -> state_dict_from_jax -> converter.py -> the same JAX tree."""
     _, variables, _, _, _ = toy
-    sd = {k: v.numpy() for k, v in state_dict_from_jax(variables).items()}
+    sd = {k: v.numpy() for k, v in state_dict_from_jax(variables).items() if not k.startswith("ema.")}
     params = variables["params"]
 
     def sub(prefix):
