@@ -18,17 +18,23 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    kernel launch counts of each pass, ms/crop and peak memory;
 6. the toy-width train step in fp32 (TF32 off), shipped TrainConfig: two
    steps on CUDA (K1, K3) against two on CPU (twins) from the same weights,
-   batches and random draws: losses, grad_norm, gradients, parameters;
+   batches and random draws: losses, grad_norm, gradients, parameters; then
+   the mixed-precision path: one step of a toy whose heads suit K3's bf16
+   body, bf16 compute against fp32 compute on CUDA from the same fp32
+   masters: losses, grad_norm and each trained tensor's gradient;
 7. the flagship train step (MADMConfig(), shipped TrainConfig) on seeded
    random weights and synthetic batches through madm_torch.train.loop.train:
    one warm-up and three steps at B=1 and at B=2, with losses, K1/K3 launch
-   counts, ms/step and peak memory of each.
+   counts, ms/step and peak memory of each; after B=1's, one more step in
+   which every trained tensor must get a finite gradient, not all zero, and
+   move.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -40,7 +46,7 @@ import torch.nn.functional as F
 from madm_torch import kernels
 from madm_torch.device import card_line
 from madm_torch.models.daformer import argmax_classes
-from madm_torch.models.madm import MADM, MADMConfig, init_random_
+from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.ops.aspp import aspp_fused, aspp_fused_reference
 from madm_torch.ops.flash_attention import (
     attention_backward_reference,
@@ -287,6 +293,131 @@ def check_toy_train():
                                  f"expected {TRAIN_LAUNCHES}")
 
 
+def unmoved(state, before):
+    """Trained tensors that the last step should have moved and did not, or
+    that the optimizer does not hold.  torch's AdamW decays w by lr*wd*w and
+    subtracts lr*u, u = m^/(sqrt(v^) + eps): an element must change where
+    lr*|u| exceeds lr*wd*|w| plus 2^-22 |w| (an fp32 ulp for each of the two
+    roundings).  Elements with |u| far below 1 (a clipped gradient under
+    Adam's eps) may rightly stay put at the shipped lr."""
+    opt = state.optimizer
+    group_of = {id(p): g for g in opt.param_groups for p in g["params"]}
+    faults = []
+    for n, p in trainable_parameters(state.model):
+        g, st = group_of.get(id(p)), opt.state.get(p)
+        if g is None or not st:
+            faults.append(f"{n}: not stepped by the optimizer")
+            continue
+        (b1, b2), t, w = g["betas"], float(st["step"]), before[n]
+        u = (st["exp_avg"] / (1 - b1 ** t)) / ((st["exp_avg_sq"] / (1 - b2 ** t)).sqrt() + g["eps"])
+        must = (g["lr"] * u.abs() > (g["lr"] * g["weight_decay"] + 2.0 ** -22) * w.abs()).any()
+        if bool(must) and torch.equal(p.detach(), w):
+            faults.append(f"{n}: not updated")
+    return faults
+
+
+def grad_groups(model):
+    """Trained tensors' gradients concatenated per top-level module (unet,
+    prompt, feature_projections, sem_seg_head)."""
+    out = {}
+    for n, p in trainable_parameters(model):
+        out.setdefault(n.split(".")[0], []).append(p.grad.flatten())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def check_toy_bf16():
+    """The mixed-precision path (fp32 masters cast to bf16 at each use by
+    ``functional_call``): one shipped-config step in bf16 compute against the
+    same step in fp32 compute, both on CUDA, from the same masters, batch and
+    draws.  The toy's UNet widths 64-256 give heads of D = 8/16/32, which K3's
+    bf16 body takes.  The mix mask is all source, so that no pseudo-label of
+    the random teacher (near-ties everywhere) enters the losses.
+
+    The gradient of a random-init model is ill-conditioned (train-mode BN,
+    the L1 palette loss's signs): to state what bf16 rounding may do to it,
+    a third step runs in fp32 with every trained weight perturbed by a
+    relative N(0, 2^-9), bf16's rounding, and its distance from fp32 is the
+    floor.  bf16 also rounds every activation, so each module's gradient may
+    be 4x that floor (at least 2^-4) from fp32's in l2."""
+    tc = TrainConfig()
+    cfg32 = dataclasses.replace(TOY, unet_channels=(64, 128, 256, 256), feature_dims=(3, 64, 128, 256))
+    m32 = init_random_(MADM(cfg32, device="cuda", trainable=True),
+                       torch.Generator(device="cuda").manual_seed(SEED))
+    m16 = MADM(dataclasses.replace(cfg32, compute_dtype=torch.bfloat16), device="cuda", trainable=True)
+    mp = MADM(cfg32, device="cuda", trainable=True)
+    for m in (m16, mp):
+        m.load_state_dict(m32.state_dict())
+    noise = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    with torch.no_grad():
+        for _, p in trainable_parameters(mp):
+            p.mul_(1 + 2.0 ** -9 * torch.randn(p.shape, device="cuda", generator=noise))
+    s32, s16, sp = (make_train_state(m, tc) for m in (m32, m16, mp))
+    gen = torch.Generator().manual_seed(SEED + 5)
+    batch = next(synthetic_batches(2, cfg32.crop_size, cfg32.num_classes, gen))
+    draws = sample_draws(gen, tc, batch["source_label"], cfg32.num_classes, m32.sem_seg_head)
+    draws["mix_mask"] = torch.ones_like(draws["mix_mask"])
+    before = {n: p.detach().clone() for n, p in trainable_parameters(m16)}
+    ref = train_step(s32, batch, draws=draws)
+    pert = train_step(sp, batch, draws=draws)
+    flash_attention.launches = flash_attention_backward.launches = 0
+    out = train_step(s16, batch, draws=draws)
+    launches = (flash_attention.launches, flash_attention_backward.launches)
+    # losses and grad_norm: means over many pixels; bf16 keeps 8 significant
+    # bits (2^-9 relative rounding): a few 2^-8 expected, 2^-5 allowed
+    loss_err = max(abs(out[k] - v) / max(abs(v), 1e-3) for k, v in ref.items())
+    # each trained tensor: a finite gradient, all zero only where fp32's is
+    # (tanh(alpha_cond_time) = 0 at step 0 zeroes time_embed's), and moved
+    # where its AdamW step exceeds fp32 rounding
+    grads32 = dict(trainable_parameters(m32))
+    faults = [f"{n}: gradient missing, non-finite or zero against fp32's"
+              for n, p in trainable_parameters(m16)
+              if p.grad is None or not torch.isfinite(p.grad).all()
+              or bool(p.grad.any()) != bool(grads32[n].grad.any())]
+    faults += unmoved(s16, before)
+    g32, g16, gp = grad_groups(m32), grad_groups(m16), grad_groups(mp)
+    rows = {k: (((g16[k] - r).norm() / r.norm()).item(), ((gp[k] - r).norm() / r.norm()).item(),
+                (g16[k].norm() / r.norm()).item()) for k, r in g32.items()}
+    bad = [k for k, (e, floor, _) in rows.items() if not e <= max(4 * floor, 2.0 ** -4)]
+    log("toy bf16 / fp32 / fp32 with weight noise metrics: " + " ".join(
+        f"{k}={out[k]:.6f}/{v:.6f}/{pert[k]:.6f}" for k, v in ref.items()))
+    log(f"toy bf16 vs fp32 train step (CUDA, D 8/16/32): losses/grad_norm max rel err "
+        f"{loss_err:.3e} (tol {2.0 ** -5:.3e}); gradient l2 rel err by module, bf16 (fp32 with "
+        f"2^-9 weight noise) [bf16/fp32 norm]: "
+        + ", ".join(f"{k} {e:.3e} ({f:.3e}) [{r:.4f}]" for k, (e, f, r) in rows.items())
+        + f"; {len(before) - len(faults)} of {len(before)} trained tensors with a finite gradient "
+        f"and their update; launches K1 {launches[0]}, K3 {launches[1]}; "
+        + " ".join(f"{k}={v:.5f}" for k, v in out.items()))
+    if faults or bad or not loss_err <= 2.0 ** -5:
+        raise AssertionError(f"bf16 toy train step disagrees with fp32: modules {bad}, "
+                             f"loss err {loss_err}, tensors {faults[:10]}")
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"bf16 toy train step launched K1 x{launches[0]}, K3 x{launches[1]}; "
+                             f"expected {TRAIN_LAUNCHES}")
+
+
+def check_full_grads(state, batches, gen):
+    """One more full-width step: every trained tensor gets a finite gradient
+    that is not all zero (a cast that cut the graph would leave one missing
+    or zero), and moves where its AdamW step exceeds fp32 rounding."""
+    named = trainable_parameters(state.model)
+    # the prompt blends tanh(alpha_uncond_prompt) * uncond_inputs: no gradient
+    # reaches alpha_uncond_prompt while that empty-prompt embedding is zeros,
+    # as it is without an SD snapshot (in the JAX package too)
+    exempt = () if state.model.uncond_inputs.any() else ("alpha_uncond_prompt",)
+    before = {n: p.detach().clone() for n, p in named}
+    m = train(state, batches, steps=1, generator=gen)[0]
+    faults = [f"{n}: gradient missing, non-finite or zero" for n, p in named
+              if p.grad is None or not torch.isfinite(p.grad).all()
+              or not (p.grad.any() or n.endswith(exempt))]
+    faults += unmoved(state, before)
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in named)
+    log(f"full-width gradient check, step {state.step}: {len(named) - len(faults)} of {len(named)} "
+        f"trained tensors pass (finite gradient, nonzero but {exempt}; {moved} moved); "
+        f"grad_norm={m['grad_norm']:.5f}")
+    if faults:
+        raise AssertionError(f"full-width step: {faults[:10]}")
+
+
 # per train step: K1 in 3 backbone passes (teacher, source, mixed) x 34 + 2
 # palette encodes x 1 (the VAE encoder's attention); K3 in 2 grad passes x 32
 # UNet attentions (the VAE runs without a graph)
@@ -333,6 +464,8 @@ def run_full_train(card):
             counts[b] = launches
         log(f"full-width train B={b}: {sum(rows) / 3:.1f} ms/step (mean of 3 after 1 warm-up; "
             f"{', '.join(f'{r:.1f}' for r in rows)}), peak memory {max(peaks):.2f} GiB [{card}]")
+        if b == 1:
+            check_full_grads(state, batches, gen)
     return counts[1]
 
 
@@ -396,6 +529,7 @@ def main() -> int:
     check_toy()
     k1_launches, k2_launches = run_full(card)
     check_toy_train()
+    check_toy_bf16()
     k3_launches = run_full_train(card)[1]
 
     def per_pass(key):

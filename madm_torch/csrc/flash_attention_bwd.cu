@@ -28,17 +28,21 @@
 // only (D=40 -> 48).  D > 160 is refused: the only larger head, the VAE's
 // D=512 mid-block attention, never trains.
 //
-// Two bodies, chosen as K1 chooses its forward body:
-// - bf16 with D % 8 == 0 and 16-byte aligned tensors (every attention of the
-//   UNet): tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate).
+// Two bodies, one per dtype:
+// - bf16 (the train step): tensor cores through mma.sync m16n8k16 (bf16 in,
+//   fp32 accumulate), instantiated for the UNet's head dims (D=40 -> 48, 80,
+//   160; other D <= 160 pad to the next of these).  It needs D % 8 == 0 and
+//   16-byte aligned tensors, as every UNet attention has; other bf16 input is
+//   refused, not sent to a slower body.
 //   q is scaled by scale*log2(e) and rounded to bf16 exactly as K1 did, so P
 //   is the forward's P; the softmax runs in base 2.  Each warp owns 16 rows
 //   (keys in the dkdv kernel, queries in the dq kernel); the score tile's
 //   accumulator registers become the A fragments of the next product
 //   (P^T dO, dS^T Q, dS K) without a trip through shared memory.  Tiles that
 //   are B operands of a k-over-rows product are staged transposed.
-// - float32 (the parity path) and any other bf16 input: SIMT fp32 FMA with
-//   the tiles in shared memory.  This body does not use the tensor cores.
+// - float32 (the parity path): SIMT fp32 FMA with the tiles in shared
+//   memory, one instantiation padded to D=160.  This body does not use the
+//   tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,10 +63,6 @@ struct Shape {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
 
 // --------------------------------------------------------------- delta
 // delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]; one warp per row
@@ -94,11 +94,11 @@ constexpr size_t simt_smem_bytes() {
 }
 
 // grid (ceil(Sk / BKV), H, B): dK/dV of BKV keys, looping over q tiles of BQ
-template <typename T, int DPAD, int BKV, int BQ>
+template <int DPAD, int BKV, int BQ>
 __global__ void __launch_bounds__(kSimtThreads)
-dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+dkdv_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
                  Shape sh, float qscale, float scale) {
   constexpr int LD = DPAD + 1, LP = BQ + 1;
   constexpr int NACC = BKV * DPAD / kSimtThreads;
@@ -117,18 +117,18 @@ dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int k0 = blockIdx.x * BKV, hh = blockIdx.y, b = blockIdx.z;
   const int H = sh.h, D = sh.d;
   const long long srow = (long long)H * D;
-  const T* qb = q + ((long long)b * sh.sq * H + hh) * D;
-  const T* gb = dout + ((long long)b * sh.sq * H + hh) * D;
-  const T* kb = k + ((long long)b * sh.sk * H + hh) * D;
-  const T* vb = v + ((long long)b * sh.sk * H + hh) * D;
+  const float* qb = q + ((long long)b * sh.sq * H + hh) * D;
+  const float* gb = dout + ((long long)b * sh.sq * H + hh) * D;
+  const float* kb = k + ((long long)b * sh.sk * H + hh) * D;
+  const float* vb = v + ((long long)b * sh.sk * H + hh) * D;
   const float* lb = lse + ((long long)b * H + hh) * sh.sq;
   const float* db = delta + ((long long)b * H + hh) * sh.sq;
 
   for (int e = tid; e < BKV * DPAD; e += kSimtThreads) {
     const int r = e / DPAD, c = e - r * DPAD;
     const bool ok = k0 + r < sh.sk && c < D;
-    Ks[r * LD + c] = ok ? to_float(kb[(k0 + r) * srow + c]) : 0.f;
-    Vs[r * LD + c] = ok ? to_float(vb[(k0 + r) * srow + c]) : 0.f;
+    Ks[r * LD + c] = ok ? kb[(k0 + r) * srow + c] : 0.f;
+    Vs[r * LD + c] = ok ? vb[(k0 + r) * srow + c] : 0.f;
   }
   float dka[NACC], dva[NACC];
 #pragma unroll
@@ -139,8 +139,8 @@ dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int e = tid; e < BQ * DPAD; e += kSimtThreads) {
       const int r = e / DPAD, c = e - r * DPAD;
       const bool ok = q0 + r < sh.sq && c < D;
-      Qs[r * LD + c] = ok ? to_float(qb[(q0 + r) * srow + c]) : 0.f;
-      Gs[r * LD + c] = ok ? to_float(gb[(q0 + r) * srow + c]) : 0.f;
+      Qs[r * LD + c] = ok ? qb[(q0 + r) * srow + c] : 0.f;
+      Gs[r * LD + c] = ok ? gb[(q0 + r) * srow + c] : 0.f;
     }
     for (int r = tid; r < BQ; r += kSimtThreads) {
       const bool ok = q0 + r < sh.sq;
@@ -172,24 +172,24 @@ dkdv_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       dka[i] += ak;
     }
   }
-  T* dkb = dk + ((long long)b * sh.sk * H + hh) * D;
-  T* dvb = dv + ((long long)b * sh.sk * H + hh) * D;
+  float* dkb = dk + ((long long)b * sh.sk * H + hh) * D;
+  float* dvb = dv + ((long long)b * sh.sk * H + hh) * D;
 #pragma unroll
   for (int i = 0; i < NACC; ++i) {
     const int e = tid + i * kSimtThreads, r = e / DPAD, c = e - r * DPAD;
     if (k0 + r < sh.sk && c < D) {
-      dkb[(k0 + r) * srow + c] = from_float<T>(dka[i] * scale);
-      dvb[(k0 + r) * srow + c] = from_float<T>(dva[i]);
+      dkb[(k0 + r) * srow + c] = dka[i] * scale;
+      dvb[(k0 + r) * srow + c] = dva[i];
     }
   }
 }
 
 // grid (ceil(Sq / BQ), H, B): dQ of BQ queries, looping over K/V tiles of BK
-template <typename T, int DPAD, int BQ, int BK>
+template <int DPAD, int BQ, int BK>
 __global__ void __launch_bounds__(kSimtThreads)
-dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ dout, const float* __restrict__ lse,
-               const float* __restrict__ delta, T* __restrict__ dq, Shape sh, float qscale,
+dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq, Shape sh, float qscale,
                float scale) {
   constexpr int LD = DPAD + 1, LS = BK + 1;
   constexpr int NACC = BQ * DPAD / kSimtThreads;
@@ -207,18 +207,18 @@ dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int q0 = blockIdx.x * BQ, hh = blockIdx.y, b = blockIdx.z;
   const int H = sh.h, D = sh.d;
   const long long srow = (long long)H * D;
-  const T* qb = q + ((long long)b * sh.sq * H + hh) * D;
-  const T* gb = dout + ((long long)b * sh.sq * H + hh) * D;
-  const T* kb = k + ((long long)b * sh.sk * H + hh) * D;
-  const T* vb = v + ((long long)b * sh.sk * H + hh) * D;
+  const float* qb = q + ((long long)b * sh.sq * H + hh) * D;
+  const float* gb = dout + ((long long)b * sh.sq * H + hh) * D;
+  const float* kb = k + ((long long)b * sh.sk * H + hh) * D;
+  const float* vb = v + ((long long)b * sh.sk * H + hh) * D;
   const float* lb = lse + ((long long)b * H + hh) * sh.sq;
   const float* db = delta + ((long long)b * H + hh) * sh.sq;
 
   for (int e = tid; e < BQ * DPAD; e += kSimtThreads) {
     const int r = e / DPAD, c = e - r * DPAD;
     const bool ok = q0 + r < sh.sq && c < D;
-    Qs[r * LD + c] = ok ? to_float(qb[(q0 + r) * srow + c]) : 0.f;
-    Gs[r * LD + c] = ok ? to_float(gb[(q0 + r) * srow + c]) : 0.f;
+    Qs[r * LD + c] = ok ? qb[(q0 + r) * srow + c] : 0.f;
+    Gs[r * LD + c] = ok ? gb[(q0 + r) * srow + c] : 0.f;
   }
   for (int r = tid; r < BQ; r += kSimtThreads) {
     const bool ok = q0 + r < sh.sq;
@@ -234,8 +234,8 @@ dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     for (int e = tid; e < BK * DPAD; e += kSimtThreads) {
       const int r = e / DPAD, c = e - r * DPAD;
       const bool ok = k0 + r < sh.sk && c < D;
-      Ks[r * LD + c] = ok ? to_float(kb[(k0 + r) * srow + c]) : 0.f;
-      Vs[r * LD + c] = ok ? to_float(vb[(k0 + r) * srow + c]) : 0.f;
+      Ks[r * LD + c] = ok ? kb[(k0 + r) * srow + c] : 0.f;
+      Vs[r * LD + c] = ok ? vb[(k0 + r) * srow + c] : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < BQ * BK; e += kSimtThreads) {
@@ -257,11 +257,11 @@ dq_simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       dqa[i] += a;
     }
   }
-  T* dqb = dq + ((long long)b * sh.sq * H + hh) * D;
+  float* dqb = dq + ((long long)b * sh.sq * H + hh) * D;
 #pragma unroll
   for (int i = 0; i < NACC; ++i) {
     const int e = tid + i * kSimtThreads, r = e / DPAD, c = e - r * DPAD;
-    if (q0 + r < sh.sq && c < D) dqb[(q0 + r) * srow + c] = from_float<T>(dqa[i] * scale);
+    if (q0 + r < sh.sq && c < D) dqb[(q0 + r) * srow + c] = dqa[i] * scale;
   }
 }
 
@@ -612,40 +612,28 @@ cudaError_t launch_mma(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DPAD>
-cudaError_t launch_simt(const Args& a) {
+template <int DPAD>
+cudaError_t launch_simt(const Args& a) {  // the fp32 parity path
   constexpr int BR = 32, BC = 32;  // rows owned by a block, rows of a streamed tile
-  cudaError_t err = launch_delta<T>(a);
+  cudaError_t err = launch_delta<float>(a);
   if (err != cudaSuccess) return err;
-  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
-          *v = static_cast<const T*>(a.v), *g = static_cast<const T*>(a.dout);
+  const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
+              *v = static_cast<const float*>(a.v), *g = static_cast<const float*>(a.dout);
   constexpr size_t smem = simt_smem_bytes<DPAD, BR, BC>();
-  auto k1 = dkdv_simt_kernel<T, DPAD, BR, BC>;
-  auto k2 = dq_simt_kernel<T, DPAD, BR, BC>;
+  auto k1 = dkdv_simt_kernel<DPAD, BR, BC>;
+  auto k2 = dq_simt_kernel<DPAD, BR, BC>;
   err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   k1<<<dim3((a.sh.sk + BR - 1) / BR, a.sh.h, a.sh.b), kSimtThreads, smem, a.st>>>(
-      q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.sh, a.qscale,
-      a.scale);
+      q, k, v, g, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sh,
+      a.qscale, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   k2<<<dim3((a.sh.sq + BR - 1) / BR, a.sh.h, a.sh.b), kSimtThreads, smem, a.st>>>(
-      q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dq), a.sh, a.qscale, a.scale);
+      q, k, v, g, a.lse, a.delta, static_cast<float*>(a.dq), a.sh, a.qscale, a.scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_simt(const Args& a) {
-  const int d = a.sh.d;
-  if (d <= 16) return launch_simt<T, 16>(a);
-  if (d <= 48) return launch_simt<T, 48>(a);
-  if (d <= 64) return launch_simt<T, 64>(a);
-  if (d <= 80) return launch_simt<T, 80>(a);
-  if (d <= 128) return launch_simt<T, 128>(a);
-  if (d <= 160) return launch_simt<T, 160>(a);
-  return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -658,8 +646,10 @@ const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<c
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: contiguous [B, Sq, H, D];
 // k, v, dk, dv: contiguous [B, Sk, H, D]; lse (from the forward) and the
-// scratch delta: contiguous fp32 [B, H, Sq].  D <= 160.  Returns the
-// cudaError_t of the launches (0 = success); the kernels run on `stream`.
+// scratch delta: contiguous fp32 [B, H, Sq].  D <= 160; bf16 also needs
+// D % 8 == 0 and 16-byte aligned q, k, v, dout, dq, dk, dv.  Returns the
+// cudaError_t of the launches (0 = success, cudaErrorInvalidValue for input
+// outside these bounds); the kernels run on `stream`.
 int madm_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse, void* delta,
                              void* dq, void* dk, void* dv, int b, int sq, int sk, int h, int d,
@@ -668,16 +658,13 @@ int madm_flash_attention_bwd(int dtype, const void* q, const void* k, const void
                dq, dk, dv, Shape{b, sq, sk, h, d}, scale * kLog2e, scale,
                static_cast<cudaStream_t>(stream)};
   if (d < 1 || d > 160) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return static_cast<int>(dispatch_simt<float>(a));
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool mma = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+  if (dtype == 0) return static_cast<int>(launch_simt<160>(a));
+  const bool mma = dtype == 1 && d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                    aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
-  if (!mma) return static_cast<int>(dispatch_simt<bf16>(a));
+  if (!mma) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (d <= 48) err = launch_mma<48, 64, 64>(a);
-  else if (d <= 64) err = launch_mma<64, 64, 64>(a);
   else if (d <= 80) err = launch_mma<80, 32, 64>(a);
-  else if (d <= 128) err = launch_mma<128, 16, 32>(a);
   else err = launch_mma<160, 16, 32>(a);
   return static_cast<int>(err);
 }

@@ -22,9 +22,15 @@ from torch import nn
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """NCHW bilinear resize, align_corners=False, no antialias."""
+    """NCHW bilinear resize, align_corners=False, no antialias.  A narrow
+    tensor that needs a gradient is resized in fp32: the CUDA backward adds
+    each fine pixel's share into the coarse gradient with atomics in the
+    tensor's dtype, and in bf16 the small shares of an 8-32x upsampling
+    round away, which shrinks the gradient of the coarse scales."""
     if tuple(x.shape[2:]) == tuple(size):
         return x
+    if x.dtype != torch.float32 and x.requires_grad and torch.is_grad_enabled():
+        return resize_bilinear(x.float(), size).to(x.dtype)
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
                          antialias=False)
 
@@ -41,6 +47,7 @@ def argmax_classes(logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
 
 
 BN_MOMENTUM = 0.9  # flax convention: running = 0.9 * running + 0.1 * batch
+DROPOUT_RATIO = 0.1  # Dropout2d before conv_seg, train only
 
 
 @torch.no_grad()
@@ -123,9 +130,8 @@ class DAFormerHead(nn.Module):
 
     def __init__(self, in_channels: Sequence[int], in_keys: Sequence[str], num_classes: int,
                  channels: int = 256, embed_dims: int = 256,
-                 dilations: Sequence[int] = (1, 6, 12, 18), dropout_ratio: float = 0.1):
+                 dilations: Sequence[int] = (1, 6, 12, 18)):
         super().__init__()
-        self.dropout_ratio = dropout_ratio  # Dropout2d before conv_seg, train only
         self.in_keys = tuple(in_keys)
         self.channels, self.embed_dims, self.num_classes = channels, embed_dims, num_classes
         self.dilations = tuple(dilations)

@@ -126,6 +126,8 @@ class MADM(nn.Module):
         self.register_buffer("shared_noise", noise.contiguous().to(self.device))
         self.eval()
         self.requires_grad_(False)
+        # fp32 masters under a narrower compute dtype are cast at each use
+        self._cast_params = trainable and cfg.compute_dtype != torch.float32
         if trainable:
             self.reset_ema_()
             self.vae.to(dtype=cfg.compute_dtype)  # frozen: one cast instead of one per pass
@@ -152,12 +154,11 @@ class MADM(nn.Module):
     def _compute(self, module: nn.Module):
         """``module`` as a callable with its parameters in the compute dtype:
         the module itself when they already are, else a ``functional_call``
-        on differentiable casts of the fp32 masters."""
-        cdt = self.cfg.compute_dtype
-        params = dict(module.named_parameters())
-        if all(p.dtype == cdt for p in params.values()):
+        on differentiable casts of the fp32 masters (its buffers, the BN
+        running statistics among them, stay the module's own)."""
+        if not self._cast_params:
             return module
-        cast = {n: p.to(cdt) for n, p in params.items()}
+        cast = {n: p.to(self.cfg.compute_dtype) for n, p in module.named_parameters()}
         return lambda *args, **kwargs: functional_call(module, cast, args, kwargs)
 
     # ---------------------------------------------------------- backbone
@@ -173,7 +174,8 @@ class MADM(nn.Module):
         """One diffusion feature pass: NHWC images in [0, 1] ->
         ``{'output_features': {name: NCHW}, 'before_vae_decoder': eps,
         'after_vae_decoder': clip(decoded eps, -1, 1)}`` (the decoder entries
-        when s0 is tapped).  ``timesteps`` [B] (default 0) noise the latent;
+        when s0 is tapped; the clipped one on train and teacher passes only,
+        which read it).  ``timesteps`` [B] (default 0) noise the latent;
         ``ema_forward`` takes the teacher's prompt and projections;
         ``train`` builds the autograd graph.  The VAE runs without one: the
         encoder is frozen, and the s0 decoder reads ``eps.detach()`` (JAX
@@ -202,7 +204,8 @@ class MADM(nn.Module):
                 with torch.no_grad():
                     dec = self.vae.decode(eps.detach().to(vae_dtype))
                 out["before_vae_decoder"] = eps
-                out["after_vae_decoder"] = dec.clamp(-1.0, 1.0)
+                if train or ema_forward:
+                    out["after_vae_decoder"] = dec.clamp(-1.0, 1.0)
                 feats.append(dec)
             feats.extend(reversed(taps))  # taps arrive smallest-resolution first
             proj = self.ema["feature_projections"] if ema_forward else self.feature_projections

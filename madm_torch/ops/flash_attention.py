@@ -108,7 +108,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) for the output gradient ``g`` of ``o = attention(q, k, v)``.
     CPU tensors run ``attention_backward_reference`` (``o`` and ``lse`` are
     not needed); CUDA tensors launch kernel K3 with the forward's ``o`` and
-    fp32 ``lse`` [B, H, Sq]."""
+    fp32 ``lse`` [B, H, Sq]: D <= 160, and in bf16 D % 8 == 0 with 16-byte
+    aligned storage (the tensor-core body), else it raises."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, g, scale)
     _check(q, k, v)
@@ -123,6 +124,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, lse = (t.contiguous() for t in (q, k, v, o, lse))
     g = g.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16 and (d % 8 or any(t.data_ptr() % 16 for t in (q, k, v, g, dq, dk, dv))):
+        raise ValueError("flash_attention_backward: bf16 needs a head dim divisible by 8 and "
+                         f"16-byte aligned tensors (head dim {d})")
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

@@ -4,7 +4,7 @@ NHWC."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,13 +20,6 @@ DELIVER_11_PALETTE = (
     250, 170, 30,
 )
 
-# ``reg_target_palette='discrete'``: a fixed high-contrast palette for the
-# decoder-regression targets only
-DISCRETE_PALETTE = (
-    255, 0, 255, 0, 255, 0, 127, 255, 127, 255, 127, 127, 0, 255, 255,
-    255, 255, 0, 0, 0, 255, 255, 0, 0, 127, 0, 127, 255, 255, 255, 0, 0, 0,
-)
-
 
 def palette_table(palette: Sequence[int], num_entries: int = 256) -> np.ndarray:
     """Flat [r0, g0, b0, r1, ...] -> [256, 3] float table in [0, 1]; entries
@@ -35,16 +28,6 @@ def palette_table(palette: Sequence[int], num_entries: int = 256) -> np.ndarray:
     flat = np.asarray(palette, np.float32).reshape(-1, 3) / 255.0
     table[: flat.shape[0]] = flat
     return table
-
-
-def reg_target_table(train_palette: Sequence[int], reg_target_palette: Optional[str]) -> np.ndarray:
-    """[256, 3] colours of the decoder-regression targets: the train palette,
-    or the discrete one for ``reg_target_palette='discrete'``."""
-    if reg_target_palette is None:
-        return palette_table(train_palette)
-    if reg_target_palette != "discrete":
-        raise ValueError(f"reg_target_palette must be None or 'discrete', got {reg_target_palette!r}")
-    return palette_table(DISCRETE_PALETTE)
 
 
 def label_to_rgb(labels: torch.Tensor, table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -3,7 +3,10 @@
     python -m madm_torch.profile_eval [--batch 1] [--out chiprun_out/profile_eval.json]
 
 Runs the flagship config (full SD-v1.4, 512x512, bf16) on seeded random
-weights and reports, for one ``eval_forward_ids`` pass after warm-up:
+weights and reports, after warm-up:
+- the mean device time of ``PASSES`` back-to-back ``eval_forward_ids``
+  passes (CUDA events around the run), as ``chip_smoke.py`` times them;
+and for one more pass:
 - the host-clock pass time (ends in a synchronize);
 - device time per stage (CUDA events from forward hooks on the VAE encoder,
   UNet, VAE decoder and projections; the head is the rest of the pass);
@@ -25,6 +28,7 @@ import torch
 from .device import card_line
 from .models.madm import MADM, MADMConfig, init_random_
 
+PASSES = 20  # timed back to back for the mean pass time
 FAMILIES = (  # first match wins; lower-case substrings of kernel names
     ("flash_attention (K1)", ("flash_fwd",)),
     ("flash_attention_backward (K3)", ("dkdv_", "dq_mma", "dq_simt", "delta_kernel")),
@@ -84,8 +88,15 @@ def main() -> None:
         model.eval_forward_ids(images)
     torch.cuda.synchronize()
 
-    events = _stage_timer(model)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(PASSES):
+        model.eval_forward_ids(images)
+    end.record()
+    end.synchronize()
+    mean_ms = start.elapsed_time(end) / PASSES
+
+    events = _stage_timer(model)
     t0 = time.perf_counter()
     start.record()
     model.eval_forward_ids(images)
@@ -100,6 +111,8 @@ def main() -> None:
     result = {
         "card": card_line(),
         "batch": args.batch,
+        "mean_pass_ms": mean_ms,
+        "passes": PASSES,
         "pass_ms_host": host_ms,
         "pass_ms_device_events": pass_ms,
         "stages_ms": stages,

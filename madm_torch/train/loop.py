@@ -21,12 +21,14 @@ from ..device import resolve_device
 from ..models.madm import MADM, MADMConfig, init_random_
 from .train_step import TrainConfig, TrainState, make_train_state, train_step
 
+BLOBS = 6  # class discs per synthetic label map
+
 
 def synthetic_batches(batch_size: int, crop: Tuple[int, int], num_classes: int,
-                      generator: torch.Generator, blobs: int = 6) -> Iterator[Dict[str, torch.Tensor]]:
+                      generator: torch.Generator) -> Iterator[Dict[str, torch.Tensor]]:
     """Endless seeded batches on the generator's device: 'source_rgb' and
     'target_second_modality' uniform in [0, 1]; 'source_label' a random
-    background class with ``blobs`` discs of random classes and one
+    background class with ``BLOBS`` discs of random classes and one
     rectangle of ignored (255) pixels per image."""
     dev = generator.device
     h, w = crop
@@ -40,7 +42,7 @@ def synthetic_batches(batch_size: int, crop: Tuple[int, int], num_classes: int,
         labels = []
         for _ in range(batch_size):
             lbl = torch.full((h, w), int(rand(()) * num_classes), dtype=torch.int64, device=dev)
-            for cy, cx, r, c in rand(blobs, 4).tolist():
+            for cy, cx, r, c in rand(BLOBS, 4).tolist():
                 disc = (ys - cy * h) ** 2 + (xs - cx * w) ** 2 < (0.1 + 0.25 * r) ** 2 * h * w
                 lbl[disc] = int(c * num_classes)
             y0, x0 = int(rand(()) * h * 0.8), int(rand(()) * w * 0.8)

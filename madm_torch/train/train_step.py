@@ -35,7 +35,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.daformer import argmax_classes
+from ..models.daformer import DROPOUT_RATIO, argmax_classes
 from ..models.madm import MADM, trainable_parameters
 from ..ops import dacs, palette
 from . import criterion
@@ -52,6 +52,7 @@ _UNPORTED: Dict[str, Any] = {
     "denoise_supervise": 0.0, "fd": 0.0, "fd_attention": 0.0,
     "target_attention_loss": False, "noise_reg": 0.0, "mask_prompt_ratio": 0.0,
     "prompt_perturbation": 0.0, "prompt_confidence": None, "merge_with_pl_data": None,
+    "reg_target_palette": None,
 }
 
 
@@ -77,7 +78,6 @@ class TrainConfig:
     reg_uncertain: bool = True
     pseudo_weight_scope: str = "sample"  # the confident fraction of each sample
     train_palette: Tuple[int, ...] = palette.DELIVER_11_PALETTE
-    reg_target_palette: Optional[str] = None
     lr: float = 5e-6
     weight_decay: float = 0.05
     grad_clip: float = 0.01
@@ -95,6 +95,7 @@ class TrainConfig:
     prompt_perturbation: float = 0.0
     prompt_confidence: Optional[float] = None
     merge_with_pl_data: Optional[str] = None
+    reg_target_palette: Optional[str] = None
 
     def __post_init__(self):
         for name, off in _UNPORTED.items():
@@ -138,8 +139,7 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
     b = labels.shape[0]
     scores = dacs.draw_class_scores(generator, b, num_classes)
     lo, hi = tc.denoise_timestep_range
-    p = head.dropout_ratio
-    keep = torch.rand(3, b, head.channels, generator=generator, device=generator.device) >= p
+    keep = torch.rand(3, b, head.channels, generator=generator, device=generator.device) >= DROPOUT_RATIO
     return {
         "mix_mask": dacs.class_masks(labels, scores, num_classes),
         "jitter": dacs.draw_color_jitter(generator, tc.color_jitter_strength,
@@ -147,7 +147,7 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
         "blur": dacs.draw_gaussian_blur(generator) if tc.blur else None,
         "t_pl": int(torch.randint(lo, hi + 1, (1,), generator=generator,
                                   device=generator.device).item()),
-        "dropout": list(keep.float() / (1.0 - p)),
+        "dropout": list(keep.float() / (1.0 - DROPOUT_RATIO)),
     }
 
 
@@ -181,8 +181,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     # 1. EMA teacher
     update_ema(model.student_ema_pairs(), ema_alpha(step, tc.ema_alpha))
 
-    table = torch.from_numpy(palette.reg_target_table(tc.train_palette, tc.reg_target_palette))
-    class_table = torch.from_numpy(palette.palette_table(tc.train_palette)[: cfg.num_classes])
+    table = torch.from_numpy(palette.palette_table(tc.train_palette))
+    class_table = table[: cfg.num_classes]
     with torch.no_grad():
         # 2. DACS mix inputs
         mix_mask = draws["mix_mask"].to(dev, torch.float32)

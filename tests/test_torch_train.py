@@ -210,7 +210,7 @@ def test_train_mode_head_matches_jax():
     ("merge_with_pl_data", "linear_mix"), ("remove_texture", True), ("denoise_supervise", 1.0),
     ("fd_attention", 1.0), ("target_attention_loss", True), ("enable_mixup", False),
     ("rev_noise_sup", False), ("rev_noise_gradually", False), ("vae_decoder_loss_type", "L2"),
-    ("reg_uncertain", False), ("pseudo_weight_scope", "batch")]])
+    ("reg_uncertain", False), ("pseudo_weight_scope", "batch"), ("reg_target_palette", "discrete")]])
 def test_unported_train_flags_raise(flag, value):
     assert flag in ts._UNPORTED
     with pytest.raises(NotImplementedError, match=flag):

@@ -107,11 +107,9 @@ def test_forced_blur_matches_jax():
 
 # --------------------------------------------------------------- palette
 def test_palette_tables_and_label_colours_match_jax():
-    for name in (None, "discrete"):
-        np.testing.assert_array_equal(
-            palette.reg_target_table(palette.DELIVER_11_PALETTE, name),
-            jpalette.reg_target_table(palette.DELIVER_11_PALETTE, name))
-    table = jpalette.palette_table(palette.DELIVER_11_PALETTE)
+    table = palette.palette_table(palette.DELIVER_11_PALETTE)
+    np.testing.assert_array_equal(table, jpalette.palette_table(palette.DELIVER_11_PALETTE))
+    np.testing.assert_array_equal(table, jpalette.reg_target_table(palette.DELIVER_11_PALETTE, None))
     labels = _labels(3)
     ref_rgb, ref_valid = jpalette.label_to_rgb(jnp.asarray(labels), jnp.asarray(table))
     rgb, valid = palette.label_to_rgb(torch.from_numpy(labels), torch.from_numpy(table))
