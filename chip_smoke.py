@@ -7,15 +7,19 @@ Phases (each prints its lines; any failure raises and exits nonzero):
 1. card: name and power limit;
 2. build: the CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
 3. kernels against their plain twins in bf16 at the main path's shapes (K1
-   and K2 at the eval pass's, K3 at the train step's): max abs error with
-   its tolerance, kernel ms, twin ms, library ms where one PyTorch call
-   computes the same function, and the least time the card could take
-   (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16);
+   and K2 at the eval pass's, K3 at the train step's, K6 and K7 at the
+   'full' eval head's): max abs error with its tolerance, kernel ms, twin
+   ms, library ms where one PyTorch call computes the same function, and
+   the least time the card could take (bytes at 3.35 TB/s, operations at
+   989 TFLOP/s bf16 on the tensor cores, or 67 TFLOP/s fp32 on the CUDA
+   cores for K6 and K7);
 4. the toy-width model in fp32 (TF32 off): the port on CUDA with kernels
-   against the port on CPU with twins, logits and ids;
+   against the port on CPU with twins, logits and ids, in the 'aspp',
+   'argmax' and 'full' eval heads (the fp32 bodies of K2, K6 and K7);
 5. the flagship config (full SD-v1.4, 512x512, bf16) on seeded random
-   weights: eval_forward_ids on [1,512,512,3] and [2,512,512,3] with the
-   kernel launch counts of each pass, ms/crop and peak memory;
+   weights: eval_forward_ids on [1,512,512,3] and [2,512,512,3] in the
+   'aspp', 'argmax' and 'full' eval heads, with the kernel launch counts of
+   each pass, ms/crop, peak memory and each head's ids against 'aspp';
 6. the toy-width train step in fp32 (TF32 off), shipped TrainConfig: two
    steps on CUDA (K1, K3) against two on CPU (twins) from the same weights,
    batches and random draws: losses, grad_norm, gradients, parameters; then
@@ -27,7 +31,12 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    one warm-up and three steps at B=1 and at B=2, with losses, K1/K3 launch
    counts, ms/step and peak memory of each; after B=1's, one more step in
    which every trained tensor must get a finite gradient, not all zero, and
-   move.
+   move; then an eval pass of the trained bf16 model;
+8. sliding-window eval of [1,512,1024,3] and [2,512,1024,3] images in both
+   forms, without and with eval_with_noise=900: ms/image, peak memory,
+   K1/K2 launches; then inference_on_dataset over 4 synthetic labelled
+   samples, single-crop at batch 2 and sliding-window at batch 1: metrics
+   and s/image.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -40,14 +49,23 @@ import math
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from madm_torch import kernels
 from madm_torch.device import card_line
+from madm_torch.evaluation import DSECSemSegEvaluator, inference_on_dataset, make_slide_eval_fn
 from madm_torch.models.daformer import argmax_classes
 from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
-from madm_torch.ops.aspp import aspp_fused, aspp_fused_reference
+from madm_torch.ops.aspp import (
+    aspp_fused,
+    aspp_fused_reference,
+    dw_branches,
+    dw_branches_reference,
+    matmul_argmax,
+    matmul_argmax_reference,
+)
 from madm_torch.ops.flash_attention import (
     attention_backward_reference,
     attention_reference,
@@ -60,6 +78,7 @@ from madm_torch.train.train_step import TrainConfig, make_train_state, sample_dr
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense tensor-core bf16
+FP32_FLOP_PER_S = 67e12    # CUDA-core fp32 (no tensor-core form: depthwise taps, 11-class dots)
 SEED = 0
 
 # (Sq, Sk, H, D, launches per 512x512 pass): 16 self + 16 cross attentions
@@ -72,6 +91,12 @@ FLASH_SHAPES = (
     (4096, 4096, 1, 512, 2),
 )
 ASPP_SHAPES = ((1, 512, 512), (1, 512, 1024))  # eval crop; sliding-window stitched width
+DW_DILATIONS = (6, 12, 18)  # the 'full' head: one K6 call a dilation over the 1024-channel concat
+COUNTERS = {"K1": flash_attention, "K2": aspp_fused, "K3": flash_attention_backward,
+            "K6": dw_branches, "K7": matmul_argmax}
+# launches of one 512x512 eval pass, by eval head
+EVAL_LAUNCHES = {"aspp": {"K1": 34, "K2": 1}, "argmax": {"K1": 34, "K7": 1},
+                 "full": {"K1": 34, "K6": 3, "K7": 1}}
 
 
 def log(*a):
@@ -97,9 +122,19 @@ def cuda_ms(fn, reps=None, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+def bound_ms(nbytes, flops, flop_rate=BF16_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def reset_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def launch_counts():
+    """Launches since ``reset_counts`` of every kernel that launched."""
+    return {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
 
 
 def check_flash(gen):
@@ -206,31 +241,130 @@ def check_aspp(gen):
     return rows
 
 
+def check_dw(gen):
+    """K6 at the 'full' head's shape: one call a dilation over the
+    1024-channel concat of a B=1 512x512 crop, against the fp32 twin on the
+    same bf16 input; cuDNN's grouped conv in bf16 (the train head's call)
+    on the same tensor as the library time."""
+    b, h, w, c = 1, 512, 512, 1024
+    x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
+    rows = []
+    for d in DW_DILATIONS:
+        taps = torch.randn(1, 3, 3, c, device="cuda", generator=gen) / 3
+        scale = torch.rand(1, c, device="cuda", generator=gen) + 0.5
+        bias = torch.randn(1, c, device="cuda", generator=gen) * 0.1
+        out = dw_branches([x], taps, scale, bias, (d,))[0]
+        torch.cuda.synchronize()
+        ref = dw_branches_reference([x.float()], taps, scale, bias, (d,))[0]
+        err = (out.float() - ref).abs().max().item()
+        tol = 2.0 ** -7 * max(1.0, ref.abs().max().item())  # output rounding after a 9-term fp32 sum
+        del ref
+        ms = cuda_ms(lambda: dw_branches([x], taps, scale, bias, (d,)), reps=20)
+        plain = cuda_ms(lambda: dw_branches_reference([x], taps, scale, bias, (d,)), reps=3, warmup=1)
+        xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor (channels_last)
+        k = taps[0].permute(2, 0, 1).unsqueeze(1).bfloat16().contiguous()
+        lib = cuda_ms(lambda: F.conv2d(xc, k, padding=d, dilation=d, groups=c), reps=5)
+        nbytes = 2 * 2 * b * h * w * c + 4 * 11 * c
+        bnd, by = bound_ms(nbytes, 18 * b * h * w * c, FP32_FLOP_PER_S)
+        rows.append(dict(shape=[b, h, w, c], dilation=d, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by))
+        log(f"K6 dw_branches [B,H,W,C]=[{b},{h},{w},{c}] d={d}: max_abs_err={err:.3e} (tol {tol:.3e}) "
+            f"ms={ms:.4f} plain_ms={plain:.3f} library_ms={lib:.3f} (cuDNN bf16 grouped conv) "
+            f"bound_ms={bnd:.4f} ({by})")
+        if not err <= tol:
+            raise AssertionError(f"K6 at d={d}: error {err} over tolerance {tol}")
+    return rows
+
+
+def check_argmax(gen):
+    """K7 at the eval head's shape: conv_seg (256 -> 11) + argmax of a B=1
+    512x512 crop against the fp32 twin on the same inputs.  Its error is the
+    largest gap between the twin's logits at the twin's and at the kernel's
+    class (0 where the ids agree)."""
+    b, h, w, c, nc = 1, 512, 512, 256, 11
+    x = torch.randn(b, h, w, c, device="cuda", generator=gen).bfloat16()
+    wt = torch.randn(c, nc, device="cuda", generator=gen) / 16
+    bias = torch.randn(nc, device="cuda", generator=gen) * 0.1
+    ids = matmul_argmax(x, wt, bias)
+    torch.cuda.synchronize()
+    ref = matmul_argmax_reference(x, wt, bias)
+    logits = x.float() @ wt + bias
+    top2 = logits.topk(2, dim=-1).values
+    tol = 1e-3 * max(1.0, logits.abs().max().item())
+    sure = (top2[..., 0] - top2[..., 1]) > tol
+    equal = ids == ref
+    agree_sure = equal[sure].float().mean().item()
+    agree = equal.float().mean().item()
+    err = (logits.gather(-1, ref.long()[..., None]) - logits.gather(-1, ids.long()[..., None])).abs().max().item()
+    ms = cuda_ms(lambda: matmul_argmax(x, wt, bias), reps=50)
+    plain = cuda_ms(lambda: matmul_argmax_reference(x, wt, bias), reps=10)
+    bnd, by = bound_ms(2 * x.numel() + 4 * (c * nc + nc) + 4 * b * h * w, 2 * c * nc * b * h * w,
+                       FP32_FLOP_PER_S)
+    log(f"K7 matmul_argmax [B,H,W,C]=[{b},{h},{w},{c}]->{nc}: ids equal the twin's on {agree:.6f} of "
+        f"pixels and on {agree_sure:.6f} of the {int(sure.sum())} with a top-2 margin > {tol:.2e}; "
+        f"max logit gap {err:.3e}; ms={ms:.4f} plain_ms={plain:.4f} library_ms=null (no single "
+        f"call) bound_ms={bnd:.4f} ({by})")
+    if not (agree_sure == 1.0 and agree >= 0.999):
+        raise AssertionError(f"K7 ids disagree with the twin: {agree_sure} (sure), {agree} (all)")
+    return dict(shape=[b, h, w, c, nc], max_abs_err=err, agree=agree, ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None)
+
+
 TOY = MADMConfig(num_classes=11, crop_size=(64, 64), unet_channels=(32, 64, 128, 128),
                  vae_channels=(32, 32, 64, 64), feature_dims=(3, 32, 64, 128),
                  projection_dim=(32, 32, 32, 32), compute_dtype=torch.float32)
 
 
 def check_toy():
+    """The toy fp32 model on CUDA (kernels) against CPU (twins): logits, and
+    ids in each kernel eval head, each pass with its launch counts."""
     cpu = init_random_(MADM(TOY, device="cpu"), torch.Generator().manual_seed(SEED))
     gpu = MADM(TOY, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     images = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(SEED + 1))
-    counts0 = (flash_attention.launches, aspp_fused.launches)
-    lg_gpu, ids_gpu = gpu.eval_forward(images).cpu(), gpu.eval_forward_ids(images).cpu()
-    if (flash_attention.launches - counts0[0], aspp_fused.launches - counts0[1]) != (68, 1):
-        raise AssertionError("toy pass on CUDA did not run K1 x34 per pass and K2 once")
-    lg_cpu, ids_cpu = cpu.eval_forward(images), cpu.eval_forward_ids(images)
+    reset_counts()
+    lg_gpu = gpu.eval_forward(images).cpu()
+    if launch_counts() != {"K1": 34}:
+        raise AssertionError(f"toy logits pass on CUDA launched {launch_counts()}; expected K1 x34")
+    lg_cpu = cpu.eval_forward(images)
     err = (lg_gpu - lg_cpu).abs().max().item()
     tol = 1e-3 * max(1.0, lg_cpu.abs().max().item())  # fp32, other summation orders
     top2 = lg_cpu.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
-    agree = (ids_gpu == ids_cpu)[sure].float().mean().item()
-    log(f"toy fp32 CUDA vs CPU: logits max_abs_err={err:.3e} (tol {tol:.3e}); ids equal on "
-        f"{agree:.6f} of {int(sure.sum())} pixels with top-2 margin > {2 * tol:.1e}; "
-        f"all pixels {(ids_gpu == ids_cpu).float().mean().item():.6f}")
-    if not (err <= tol and agree == 1.0):
-        raise AssertionError("toy-width CUDA path disagrees with the CPU twins")
+    log(f"toy fp32 CUDA vs CPU: logits max_abs_err={err:.3e} (tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError("toy-width CUDA logits disagree with the CPU twins")
+    for mode, expected in EVAL_LAUNCHES.items():
+        reset_counts()
+        ids_gpu = gpu.eval_forward_ids(images, eval_head=mode).cpu()
+        counts = launch_counts()
+        ids_cpu = cpu.eval_forward_ids(images, eval_head=mode)
+        agree = (ids_gpu == ids_cpu)[sure].float().mean().item()
+        log(f"toy fp32 CUDA vs CPU, '{mode}' head: ids equal on {agree:.6f} of {int(sure.sum())} "
+            f"pixels with top-2 margin > {2 * tol:.1e}; all pixels "
+            f"{(ids_gpu == ids_cpu).float().mean().item():.6f}; launches {counts}")
+        if agree != 1.0:
+            raise AssertionError(f"toy-width CUDA '{mode}' head disagrees with the CPU twins")
+        if counts != expected:
+            raise AssertionError(f"toy '{mode}' pass launched {counts}; expected {expected}")
+    # the sliding window over a 64x128 image (three windows, as at 512x1024)
+    wide = torch.rand(1, 64, 128, 3, generator=torch.Generator().manual_seed(SEED + 9))
+    lg = cpu._eval_head()(cpu.slide_backbone_forward(wide)["output_features"]).permute(0, 2, 3, 1)
+    top2 = lg.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2e-3 * max(1.0, lg.abs().max().item())
+    ids_cpu = make_slide_eval_fn(cpu)(wide)
+    for form in ("window", "batch"):
+        f_gpu = gpu.slide_backbone_forward(wide, form=form)["output_features"]
+        f_cpu = cpu.slide_backbone_forward(wide, form=form)["output_features"]
+        err = max((f_gpu[k].cpu() - v).abs().max().item() / max(1.0, v.abs().max().item())
+                  for k, v in f_cpu.items())
+        ids_gpu = make_slide_eval_fn(gpu, form=form)(wide).cpu()
+        agree = (ids_gpu == ids_cpu)[sure].float().mean().item()
+        log(f"toy fp32 slide eval CUDA vs CPU, form={form}: stitched features max err {err:.3e} of "
+            f"max(1, max|feature|) (tol 1e-3); ids equal on {agree:.6f} of {int(sure.sum())} pixels "
+            f"with a settled argmax")
+        if not (err <= 1e-3 and agree == 1.0):
+            raise AssertionError(f"toy slide eval form={form}: CUDA disagrees with the CPU twins")
 
 
 def check_toy_train():
@@ -251,7 +385,7 @@ def check_toy_train():
         batch = next(batches)
         draws = sample_draws(gen, tc, batch["source_label"], TOY.num_classes, cpu.sem_seg_head)
         m_cpu = train_step(s_cpu, batch, draws=draws)
-        flash_attention.launches = flash_attention_backward.launches = 0
+        reset_counts()
         m_gpu = train_step(s_gpu, batch, draws=draws)
         launches = (flash_attention.launches, flash_attention_backward.launches)
         # losses and grad_norm: fp32, other summation orders (the CPU port
@@ -359,7 +493,7 @@ def check_toy_bf16():
     before = {n: p.detach().clone() for n, p in trainable_parameters(m16)}
     ref = train_step(s32, batch, draws=draws)
     pert = train_step(sp, batch, draws=draws)
-    flash_attention.launches = flash_attention_backward.launches = 0
+    reset_counts()
     out = train_step(s16, batch, draws=draws)
     launches = (flash_attention.launches, flash_attention_backward.launches)
     # losses and grad_norm: means over many pixels; bf16 keeps 8 significant
@@ -443,7 +577,7 @@ def run_full_train(card):
         rows, peaks = [], []
         for _ in range(3):
             torch.cuda.reset_peak_memory_stats()
-            flash_attention.launches = flash_attention_backward.launches = 0
+            reset_counts()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             m = train(state, batches, steps=1, generator=gen)[0]
@@ -466,10 +600,22 @@ def run_full_train(card):
             f"{', '.join(f'{r:.1f}' for r in rows)}), peak memory {max(peaks):.2f} GiB [{card}]")
         if b == 1:
             check_full_grads(state, batches, gen)
+    # an eval pass of the trained model: bf16 casts of the fp32 masters, BN in fp32
+    images = torch.rand(1, 512, 512, 3, device="cuda", generator=gen)
+    reset_counts()
+    ids = state.model.eval_forward_ids(images)
+    torch.cuda.synchronize()
+    check_ids(ids, (1, 512, 512), cfg.num_classes)
+    log(f"eval pass of the trained bf16 model (step {state.step}): ids in range, launches "
+        f"{launch_counts()}")
+    if launch_counts() != EVAL_LAUNCHES["aspp"]:
+        raise AssertionError(f"trained model's eval pass launched {launch_counts()}")
     return counts[1]
 
 
 def run_full(card):
+    """The flagship eval pass in each kernel head at B=1 and B=2; returns
+    the model and the B=1 launch counts of each head."""
     cfg = MADMConfig()
     t0 = time.perf_counter()
     model = init_random_(MADM(cfg, device="cuda"), torch.Generator(device="cuda").manual_seed(SEED))
@@ -480,32 +626,112 @@ def run_full(card):
     counts = {}
     for b in (1, 2):
         images = torch.rand(b, 512, 512, 3, device="cuda", generator=gen)
-        model.eval_forward_ids(images)  # warm-up (cuDNN algorithm choice)
-        torch.cuda.synchronize()
-        flash_attention.launches = aspp_fused.launches = 0
-        ids = model.eval_forward_ids(images)
-        torch.cuda.synchronize()
-        counts[b] = (flash_attention.launches, aspp_fused.launches)
-        if ids.shape != (b, 512, 512) or ids.dtype != torch.int32:
-            raise AssertionError(f"ids {tuple(ids.shape)} {ids.dtype}")
-        lo, hi = ids.min().item(), ids.max().item()
-        if lo < 0 or hi >= cfg.num_classes:
-            raise AssertionError(f"ids outside [0, {cfg.num_classes}): {lo}..{hi}")
+        ids_of = {}
+        for mode, expected in EVAL_LAUNCHES.items():
+            model.eval_forward_ids(images, eval_head=mode)  # warm-up (cuDNN algorithm choice)
+            torch.cuda.synchronize()
+            reset_counts()
+            ids = model.eval_forward_ids(images, eval_head=mode)
+            torch.cuda.synchronize()
+            counts[b, mode] = launch_counts()
+            check_ids(ids, (b, 512, 512), cfg.num_classes)
+            ids_of[mode] = ids
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: model.eval_forward_ids(images, eval_head=mode), reps=5, warmup=0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            agree = (ids == ids_of["aspp"]).float().mean().item()
+            log(f"full width B={b} '{mode}' head: launches {counts[b, mode]}; ids in range, equal "
+                f"to the 'aspp' head's on {agree:.4f} of pixels; {ms / b:.2f} ms/crop "
+                f"({ms:.2f} ms/pass), peak memory {peak:.2f} GiB [{card}]")
+            if counts[b, mode] != expected:
+                raise AssertionError(f"B={b} '{mode}' pass launched {counts[b, mode]}; expected {expected}")
+            if agree < 0.99:  # near-ties and bf16 rounding at other places
+                raise AssertionError(f"B={b} '{mode}' head agrees with 'aspp' on only {agree:.4f}")
         logits = model.eval_forward(images)
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits")
-        agree = (argmax_classes(logits, dim=-1) == ids).float().mean().item()
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: model.eval_forward_ids(images), reps=5, warmup=1)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"full width B={b}: K1 launches {counts[b][0]}, K2 launches {counts[b][1]}; ids in "
-            f"[{lo}, {hi}], logits finite, K2 head ids equal module-head argmax on {agree:.4f} of "
-            f"pixels; {ms / b:.2f} ms/crop ({ms:.2f} ms/pass), peak memory {peak:.2f} GiB "
-            f"[{card}]")
-        if counts[b] != (34, 1):
-            raise AssertionError(f"B={b} pass launched K1 x{counts[b][0]}, K2 x{counts[b][1]}; "
-                                 "expected 34 and 1")
-    return counts[1]
+        agree = (argmax_classes(logits, dim=-1) == ids_of["aspp"]).float().mean().item()
+        log(f"full width B={b}: logits finite; 'aspp' head ids equal the module head's argmax on "
+            f"{agree:.4f} of pixels")
+    return model, {mode: counts[1, mode] for mode in EVAL_LAUNCHES}
+
+
+def check_ids(ids, shape, num_classes):
+    if tuple(ids.shape) != tuple(shape) or ids.dtype != torch.int32:
+        raise AssertionError(f"ids {tuple(ids.shape)} {ids.dtype}; expected {tuple(shape)} int32")
+    lo, hi = ids.min().item(), ids.max().item()
+    if lo < 0 or hi >= num_classes:
+        raise AssertionError(f"ids outside [0, {num_classes}): {lo}..{hi}")
+
+
+def synthetic_samples(n, h, w, num_classes, seed):
+    """Test-loader samples: an image [1, H, W, 3] in [0, 1] and a label map."""
+    rng = np.random.default_rng(seed)
+    return [{"target_second_modality": rng.uniform(size=(1, h, w, 3)).astype(np.float32),
+             "target_label": rng.integers(0, num_classes, size=(h, w)).astype(np.int32)}
+            for _ in range(n)]
+
+
+def run_slide_and_dataset(model, card):
+    """Sliding-window eval of 512x1024 images in both forms, without and
+    with eval_with_noise; then inference_on_dataset single-crop and slide."""
+    nc = model.cfg.num_classes
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for b in (1, 2):
+        images = torch.rand(b, 512, 1024, 3, device="cuda", generator=gen)
+        ids_of = {}
+        for form in ("window", "batch"):
+            for noise in (None, 900):
+                fn = make_slide_eval_fn(model, eval_with_noise=noise, form=form)
+                fn(images)  # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                ids = fn(images)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                check_ids(ids, (b, 512, 1024), nc)
+                ids_of[form, noise] = ids
+                expected = {"K1": 34 * (3 if form == "window" else 1), "K2": b}
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: fn(images), reps=3, warmup=0)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                rows.append(dict(batch=b, form=form, eval_with_noise=noise, ms_per_image=ms / b,
+                                 peak_gib=peak, launches=counts))
+                log(f"slide eval [{b},512,1024,3] form={form} eval_with_noise={noise}: launches "
+                    f"{counts}; ids in range; {ms / b:.2f} ms/image ({ms:.2f} ms/pass), peak memory "
+                    f"{peak:.2f} GiB [{card}]")
+                if counts != expected:
+                    raise AssertionError(f"slide pass launched {counts}; expected {expected}")
+        # the forms differ only in batch composition, which moves bf16 rounding
+        # through the UNet: near-ties of the random weights flip (phase 4 holds
+        # the two forms to the CPU twins in fp32)
+        same = (ids_of["window", None] == ids_of["batch", None]).float().mean().item()
+        moved = (ids_of["batch", None] != ids_of["batch", 900]).float().mean().item()
+        log(f"slide eval B={b}: 'window' and 'batch' ids equal on {same:.4f} of pixels; "
+            f"eval_with_noise=900 changes {moved:.4f} of them")
+        if same < 0.95 or moved < 0.05:
+            raise AssertionError(f"slide forms agree on {same}, noise moved {moved}")
+
+    for slide, batch, (h, w) in ((False, 2, (512, 512)), (True, 1, (512, 1024))):
+        samples = synthetic_samples(4, h, w, nc, SEED + 8)
+        ev = DSECSemSegEvaluator(stuff_classes=[f"class{i}" for i in range(nc)])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = inference_on_dataset(model, samples, ev, slide_inference=slide, batch=batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        metrics = {k: res["sem_seg"][k] for k in ("mIoU", "fwIoU", "mACC", "pACC")}
+        log(f"inference_on_dataset {'slide' if slide else 'single-crop'} {h}x{w} batch {batch}: "
+            f"{ev.eval_index} samples, {dt / len(samples):.3f} s/image (first groups included), "
+            f"launches {counts}; " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()) + f" [{card}]")
+        if ev.eval_index != len(samples) or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"dataset eval: {ev.eval_index} samples, metrics {metrics}")
+        if not (counts.get("K1") and counts.get("K2")):
+            raise AssertionError(f"dataset eval did not launch K1 and K2: {counts}")
+    return rows
 
 
 def main() -> int:
@@ -526,8 +752,13 @@ def main() -> int:
     flash_rows = check_flash(gen)
     bwd_rows = check_flash_bwd(gen)
     aspp_rows = check_aspp(gen)
+    dw_rows = check_dw(gen)
+    argmax_row = check_argmax(gen)
     check_toy()
-    k1_launches, k2_launches = run_full(card)
+    model, eval_counts = run_full(card)
+    run_slide_and_dataset(model, card)
+    del model
+    torch.cuda.empty_cache()
     check_toy_train()
     check_toy_bf16()
     k3_launches = run_full_train(card)[1]
@@ -540,18 +771,21 @@ def main() -> int:
     def per_step(key):
         return sum(r[key] * r["per_step"] for r in bwd_rows)
 
+    def dw_pass(key):
+        return sum(r[key] for r in dw_rows)
+
     k3_b = sum((2 * 4 * (sq + sk) * h * d + 4 * h * sq) * 2 * n
                for sq, sk, h, d, n in FLASH_SHAPES if d <= 160)
     k3_f = sum(10 * h * sq * sk * d * 2 * n for sq, sk, h, d, n in FLASH_SHAPES if d <= 160)
     kernels_line = {"kernels": [
         {"name": "flash_attention", "route": "cuda", "source": "madm_torch/csrc/flash_attention.cu",
-         "replaces": "madm_tpu/ops/flash_attention.py:34", "launches": k1_launches,
+         "replaces": "madm_tpu/ops/flash_attention.py:34", "launches": eval_counts["aspp"]["K1"],
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "ms": per_pass("ms"), "plain_ms": per_pass("plain_ms"), "bound_ms": per_pass("bound_ms"),
          "bound_by": bound_ms(k1_b, k1_f)[1], "library_ms": per_pass("library_ms"),
          "per": "one 512x512 pass at B=1 (sum over its 34 calls)", "shapes": flash_rows},
         {"name": "aspp_fused", "route": "cuda", "source": "madm_torch/csrc/aspp_fused.cu",
-         "replaces": "madm_tpu/ops/aspp.py:208", "launches": k2_launches,
+         "replaces": "madm_tpu/ops/aspp.py:208", "launches": eval_counts["aspp"]["K2"],
          "max_abs_err": max(r["max_abs_err"] for r in aspp_rows),
          "ms": aspp_rows[0]["ms"], "plain_ms": aspp_rows[0]["plain_ms"],
          "bound_ms": aspp_rows[0]["bound_ms"], "bound_by": aspp_rows[0]["bound_by"],
@@ -563,6 +797,18 @@ def main() -> int:
          "ms": per_step("ms"), "plain_ms": per_step("plain_ms"), "bound_ms": per_step("bound_ms"),
          "bound_by": bound_ms(k3_b, k3_f)[1], "library_ms": per_step("library_ms"),
          "per": "one train step at B=1", "shapes": bwd_rows},
+        {"name": "dw_branches", "route": "cuda", "source": "madm_torch/csrc/dw_branches.cu",
+         "replaces": "madm_tpu/ops/aspp.py:44", "launches": eval_counts["full"]["K6"],
+         "max_abs_err": max(r["max_abs_err"] for r in dw_rows),
+         "ms": dw_pass("ms"), "plain_ms": dw_pass("plain_ms"), "bound_ms": dw_pass("bound_ms"),
+         "bound_by": dw_rows[0]["bound_by"], "library_ms": dw_pass("library_ms"),
+         "per": "one 512x512 'full' pass at B=1 (sum over its 3 calls, d = 6, 12, 18)",
+         "shapes": dw_rows},
+        {"name": "matmul_argmax", "route": "cuda", "source": "madm_torch/csrc/matmul_argmax.cu",
+         "replaces": "madm_tpu/ops/aspp.py:503", "launches": eval_counts["full"]["K7"],
+         **{k: argmax_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")},
+         "per": "one 512x512 'argmax' or 'full' pass at B=1", "shapes": [argmax_row]},
     ]}
     log(card)
     log(json.dumps(kernels_line))

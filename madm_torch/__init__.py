@@ -1,9 +1,11 @@
-"""madm_torch: MADM in PyTorch for an NVIDIA H100 — the single-crop eval
-pass and the shipped UDA train step (``madm_torch.train``).
+"""madm_torch: MADM in PyTorch for an NVIDIA H100 — the eval path (single
+crop and sliding window, four eval heads, ``madm_torch.evaluation``) and the
+shipped UDA train step (``madm_torch.train``).
 
 A port of ``madm_tpu`` (the JAX reference, which stays as it is) that imports
 neither JAX nor ``madm_tpu``.  Its hand-written CUDA kernels (flash attention
-forward and backward, the fused sep-ASPP layer) build from ``csrc/`` at first
+forward and backward, the fused sep-ASPP layer, the dilated depthwise convs
+and conv_seg + argmax of the fused eval heads) build from ``csrc/`` at first
 CUDA use; CPU tensors take their plain PyTorch twins.
 """
 

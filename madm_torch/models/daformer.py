@@ -9,7 +9,9 @@ Eval BN uses the running statistics.  Train BN (flax semantics) normalises
 by the batch statistics over N, H, W; with ``update_bn`` it folds them into
 the running statistics with momentum 0.9 and the biased variance.  Dropout2d
 takes its channel multiplier from the caller.  This module head is the plain
-path; ``ops.aspp.aspp_head_forward`` computes the same eval ids with kernel K2.
+path; ``ops.aspp``'s eval heads compute the same eval ids with kernels K2
+(``aspp_head_forward``), K7 (``argmax_head_forward``) or K6 and K7
+(``fused_head_forward``).
 """
 
 from __future__ import annotations
@@ -148,9 +150,12 @@ class DAFormerHead(nn.Module):
         return [resize_bilinear(self.embed_layers[str(i)](x), size) for i, x in enumerate(xs)]
 
     def forward(self, features: Dict[str, torch.Tensor], train: bool = False,
-                update_bn: bool = False, dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``dropout``: Dropout2d's channel multiplier [B, channels] (train only)."""
+                update_bn: bool = False, dropout: Optional[torch.Tensor] = None,
+                return_pre_seg: bool = False) -> torch.Tensor:
+        """``dropout``: Dropout2d's channel multiplier [B, channels] (train
+        only).  ``return_pre_seg`` returns conv_seg's input instead of the
+        logits, for a caller that fuses conv_seg with the argmax."""
         x = self.fuse_layer(torch.cat(self.embeds(features), dim=1), train, update_bn)
         if dropout is not None:
             x = x * dropout.to(x.dtype)[:, :, None, None]
-        return self.conv_seg(x)
+        return x if return_pre_seg else self.conv_seg(x)

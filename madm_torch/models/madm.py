@@ -1,6 +1,7 @@
 """MADM: diffusion feature extractor + DAFormer head (port of
-``madm_tpu/models/madm.py``: the single-crop eval pass and the shipped
-branches of the train-side backbone and head).
+``madm_tpu/models/madm.py``: the eval passes, single-crop and sliding-window,
+with their four eval heads, and the shipped branches of the train-side
+backbone and head).
 
 One ``nn.Module`` holds every weight under checkpoint-style names (``vae``,
 ``unet``, ``prompt.clip_project_rgb``, ``feature_projections``,
@@ -14,13 +15,16 @@ fp32 moments), cast to the compute dtype at each use so that convs, linears
 and kernels K1/K3 run in it; the frozen VAE is kept in the compute dtype.
 It also holds the EMA teacher's copies (``ema.feature_projections``,
 ``ema.sem_seg_head`` with its BN statistics, ``ema.clip_project_others``).
+Eval passes read the student, never the teacher, as JAX's read ``params``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -39,6 +43,8 @@ from .sd.scheduler import add_noise, shared_noise
 # taken yet, with the one value it takes; setting another raises
 _UNPORTED = {"finetune_unet": "all", "lora_configs": (), "ema_w_unet": False,
              "slide_training": False}
+# eval heads of ``eval_forward_ids`` ('auto': 'aspp' where the head fits it, else 'none')
+EVAL_HEADS = ("auto", "aspp", "argmax", "full", "none")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +69,18 @@ class MADMConfig:
     lora_configs: Tuple[str, ...] = ()
     ema_w_unet: bool = False
     slide_training: bool = False
+    # the eval head of eval_forward_ids (the JAX package's MADM_FUSED_HEAD):
+    # 'aspp' the module embeds and kernel K2 for the fuse layer; 'argmax'
+    # the module head to the bottleneck, then K7; 'full' K6 for the dilated
+    # depthwise convs and K7; 'none' the module head and an argmax
+    eval_head: str = "auto"
 
     def __post_init__(self):
         for name, value in _UNPORTED.items():
             if getattr(self, name) != value:
                 raise NotImplementedError(f"MADMConfig.{name} is not ported to madm_torch yet")
+        if self.eval_head not in EVAL_HEADS:
+            raise ValueError(f"MADMConfig.eval_head {self.eval_head!r} is not one of {EVAL_HEADS}")
 
     @property
     def latent_size(self) -> Tuple[int, int]:
@@ -224,29 +237,166 @@ class MADM(nn.Module):
         head = self.ema["sem_seg_head"] if ema_forward else self.sem_seg_head
         return self._compute(head)(features, train=train, update_bn=update_bn, dropout=dropout)
 
-    def head_ids(self, features: Dict[str, torch.Tensor], image_hw) -> torch.Tensor:
-        """Argmax ids [B, H, W]: kernel K2's head where the head config fits
-        it, else the module head."""
-        if aspp.fits_kernel(self.sem_seg_head):  # s0 leads: the head runs at image resolution
-            return aspp.aspp_head_forward(self.sem_seg_head, features)
-        logits = self.sem_seg_head(features)
-        if tuple(logits.shape[2:]) != tuple(image_hw):
-            logits = resize_bilinear(logits.float(), image_hw)
-        return argmax_classes(logits)
+    def _eval_head(self) -> DAFormerHead:
+        """The student head for eval passes in the compute dtype: the head
+        itself, or, over fp32 masters, a copy whose convs and linears hold
+        compute-dtype casts while BN keeps its fp32 affine and statistics
+        (eval BN then normalises in fp32, as flax promotes it, and the
+        kernel heads fold BN in fp32)."""
+        head = self.sem_seg_head
+        if not self._cast_params:
+            return head
+        head = copy.deepcopy(head)
+        for m in head.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m.to(self.cfg.compute_dtype)
+        return head
 
-    # --------------------------------------------------------- eval pass
+    def eval_head_mode(self, eval_head: Optional[str] = None) -> str:
+        """The eval head ``eval_forward_ids`` runs: ``eval_head``, else the
+        config's.  The kernel heads give ids at the first feature's
+        resolution, so they need the head to lead with s0 on 4 inputs;
+        'aspp' and 'full' also need dilations 1/6/12/18 and 256-wide embeds
+        and branches (JAX ``_eval_head_mode``, without its TPU tiling
+        rules).  'auto' takes 'aspp' where the head fits it, else 'none'; a
+        head asked for by name that the model does not fit raises."""
+        mode = eval_head or self.cfg.eval_head
+        if mode not in EVAL_HEADS:
+            raise ValueError(f"eval head {mode!r} is not one of {EVAL_HEADS}")
+        head = self.sem_seg_head
+        at_image_res = len(head.in_keys) == 4 and head.in_keys[0] == "s0"
+        fits = {"aspp": aspp.fits_kernel(head), "full": aspp.fits_kernel(head),
+                "argmax": at_image_res, "none": True}
+        if mode == "auto":
+            return "aspp" if fits["aspp"] else "none"
+        if not fits[mode]:
+            raise ValueError(
+                f"eval head {mode!r} does not fit this head (in_keys {head.in_keys}, dilations "
+                f"{head.dilations}, embed_dims {head.embed_dims}, channels {head.channels})")
+        return mode
+
     @torch.no_grad()
-    def eval_forward(self, images) -> torch.Tensor:
+    def head_ids(self, features: Dict[str, torch.Tensor], image_hw,
+                 eval_head: Optional[str] = None) -> torch.Tensor:
+        """Argmax ids [B, H, W] int32 from NCHW features, through the eval
+        head that ``eval_head_mode`` picks (shared by the single-crop and
+        the sliding-window passes)."""
+        mode = self.eval_head_mode(eval_head)
+        head = self._eval_head()
+        if mode == "aspp":
+            return _chunk_over_batch(lambda f: aspp.aspp_head_forward(head, f), features,
+                                     _head_chunk(image_hw))
+        if mode == "full":
+            return aspp.fused_head_forward(head, features)
+        if mode == "argmax":
+            return aspp.argmax_head_forward(head, features)
+        return _ids_from_logits(head(features), image_hw)
+
+    # -------------------------------------------------------- eval passes
+    def _eval_timesteps(self, b: int, eval_with_noise: Optional[int]) -> Optional[torch.Tensor]:
+        """``eval_with_noise``: a fixed noise timestep for every image of a
+        test batch (reference ``mtmadise.py:681-682``), else t = 0."""
+        if eval_with_noise is None:
+            return None
+        return torch.full((b,), int(eval_with_noise), dtype=torch.long, device=self.device)
+
+    @torch.no_grad()
+    def eval_forward(self, images, eval_with_noise: Optional[int] = None) -> torch.Tensor:
         """Logits [B, H, W, num_classes] fp32 through the module head."""
         x = self._images(images)
-        logits = self.sem_seg_head(self.backbone_forward(x)["output_features"])
+        feats = self.backbone_forward(
+            x, timesteps=self._eval_timesteps(x.shape[0], eval_with_noise))["output_features"]
+        logits = self._eval_head()(feats)
         return resize_bilinear(logits.float(), x.shape[1:3]).permute(0, 2, 3, 1)
 
     @torch.no_grad()
-    def eval_forward_ids(self, images) -> torch.Tensor:
-        """Argmax ids [B, H, W] int32 — the inference hot path."""
+    def eval_forward_ids(self, images, eval_with_noise: Optional[int] = None,
+                         eval_head: Optional[str] = None) -> torch.Tensor:
+        """Argmax ids [B, H, W] int32 — the inference hot path.
+        ``eval_head`` overrides ``MADMConfig.eval_head`` for this call."""
         x = self._images(images)
-        return self.head_ids(self.backbone_forward(x)["output_features"], x.shape[1:3])
+        feats = self.backbone_forward(
+            x, timesteps=self._eval_timesteps(x.shape[0], eval_with_noise))["output_features"]
+        return self.head_ids(feats, x.shape[1:3], eval_head)
+
+    # ------------------------------------------------- sliding-window pass
+    def slide_windows(self, h: int, w: int) -> Tuple[Tuple[int, int, int, int], ...]:
+        """(y1, y2, x1, x2) crops covering (h, w) at half-crop stride; for
+        512x1024 exactly the reference's three, ``feature_extractor.py:75``."""
+        ch, cw = self.cfg.crop_size
+        ys = sorted({min(y, h - ch) for y in range(0, max(h - ch, 0) + 1, max(ch // 2, 1))})
+        xs = sorted({min(x, w - cw) for x in range(0, max(w - cw, 0) + 1, max(cw // 2, 1))})
+        return tuple((y, y + ch, x, x + cw) for y in ys for x in xs)
+
+    @torch.no_grad()
+    def slide_backbone_forward(self, images, *, windows=None,
+                               timesteps: Optional[torch.Tensor] = None,
+                               form: str = "batch") -> Dict[str, Dict[str, torch.Tensor]]:
+        """Sliding-window backbone (JAX ``slide_backbone_forward``, reference
+        ``slide_forward``, ``feature_extractor.py:199-278``): each window's
+        features added into canvases of the feature dtype and scaled by the
+        reciprocal of the overlap counts.  ``form='window'`` runs one
+        backbone pass a window, so only one window's features live at a
+        time; ``form='batch'`` runs all windows as one pass of B * n_win
+        crops, with fewer launches.  ``timesteps`` [B] go to every window.
+        Returns ``{'output_features': {name: NCHW}}`` at image resolution
+        over each stride."""
+        x = self._images(images)
+        b, h, w, _ = x.shape
+        windows = tuple(windows or self.slide_windows(h, w))
+        if form == "window":
+            per_window = ((win, self.backbone_forward(x[:, win[0]:win[1], win[2]:win[3]],
+                                                      timesteps=timesteps)["output_features"])
+                          for win in windows)
+        elif form == "batch":
+            crops = torch.cat([x[:, y1:y2, x1:x2] for y1, y2, x1, x2 in windows], dim=0)
+            if timesteps is not None:
+                timesteps = torch.as_tensor(timesteps, device=self.device).expand(b).repeat(len(windows))
+            feats = self.backbone_forward(crops, timesteps=timesteps)["output_features"]
+            per_window = ((win, {k: f[i * b:(i + 1) * b] for k, f in feats.items()})
+                          for i, win in enumerate(windows))
+        else:
+            raise ValueError(f"slide form {form!r} is not 'window' or 'batch'")
+        strides = {name: 2 ** int(name[1]) for name in self.cfg.out_features}
+        canvases: Dict[str, torch.Tensor] = {}
+        counts = {name: np.zeros((h // s, w // s), np.float32) for name, s in strides.items()}
+        for (y1, y2, x1, x2), window_feats in per_window:
+            for name, s in strides.items():
+                f = window_feats[name]
+                if name not in canvases:
+                    canvases[name] = f.new_zeros((b, f.shape[1], h // s, w // s))
+                canvases[name][:, :, y1 // s:y2 // s, x1 // s:x2 // s] += f
+                counts[name][y1 // s:y2 // s, x1 // s:x2 // s] += 1.0
+        return {"output_features": {
+            name: canvas * torch.from_numpy(1.0 / counts[name]).to(canvas.device, canvas.dtype)
+            for name, canvas in canvases.items()}}
+
+
+def _chunk_over_batch(fn: Callable, feats: Dict[str, torch.Tensor], chunk: int) -> torch.Tensor:
+    """A per-image-independent ``fn`` over batch chunks of ``feats``, its
+    outputs concatenated: bounds the head's full-resolution intermediates,
+    which scale with B*H*W."""
+    b = next(iter(feats.values())).shape[0]
+    if b <= chunk:
+        return fn(feats)
+    return torch.cat([fn({k: v[i:i + chunk] for k, v in feats.items()})
+                      for i in range(0, b, chunk)], dim=0)
+
+
+def _head_chunk(image_hw) -> int:
+    """Images per 'aspp' head call (JAX ``head_ids``): one where the image is
+    wider than 512 pixels (the sliding window's stitched features), else up
+    to eight 512x512 crops' worth of pixels."""
+    h, w = (int(v) for v in image_hw)
+    return 1 if w > 512 else max(1, (8 * 512 * 512) // (h * w))
+
+
+def _ids_from_logits(logits: torch.Tensor, hw) -> torch.Tensor:
+    """Argmax ids at image resolution from NCHW logits; the resize (in fp32)
+    only where the head ran below it."""
+    if tuple(logits.shape[2:]) != tuple(hw):
+        logits = resize_bilinear(logits.float(), hw)
+    return argmax_classes(logits)
 
 
 def init_random_(model: MADM, generator: torch.Generator) -> MADM:

@@ -1,11 +1,18 @@
-"""The fused separable-ASPP fuse layer (kernel K2), its plain twin, and the
-eval DAFormer head built on it (port of ``madm_tpu/ops/aspp.py``).
+"""The eval head's kernels and the heads built on them (port of
+``madm_tpu/ops/aspp.py``).
 
-``aspp_fused`` takes NHWC embeds and returns the NHWC branch concat
-``[B, H, W, 4*PC]``.  A CPU tensor goes to ``aspp_fused_reference``; a CUDA
-tensor launches ``csrc/aspp_fused.cu`` (which replaces
-``madm_tpu/ops/aspp.py::_aspp_fused_kernel``), or raises.
-``aspp_fused.launches`` counts kernel launches.
+- ``aspp_fused`` (K2, ``csrc/aspp_fused.cu``, replaces ``_aspp_fused_kernel``):
+  the whole sep-ASPP fuse layer, NHWC embeds -> branch concat
+  ``[B, H, W, 4*PC]``; ``aspp_head_forward`` is the 'aspp' eval head on it.
+- ``dw_branches`` (K6, ``csrc/dw_branches.cu``, replaces ``_dw_kernel``):
+  dilated 3x3 depthwise conv + folded BN + ReLU, one output per dilation.
+- ``matmul_argmax`` (K7, ``csrc/matmul_argmax.cu``, replaces
+  ``_argmax_kernel``): conv_seg + first-occurrence argmax, int32 ids.
+  ``fused_head_forward`` is the 'full' eval head on K6 and K7.
+
+A CPU tensor goes to the kernel's plain twin (``*_reference``); a CUDA
+tensor launches the kernel, or raises.  ``<wrapper>.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -118,6 +125,150 @@ def aspp_fused(embeds: Sequence[torch.Tensor], dw_w, dw_s, dw_b, pw_w, pw_s, pw_
 aspp_fused.launches = 0
 
 
+# ------------------------------------------------------------------- K6
+DW_MAX_DILATION = 18  # halo of the input rows the kernel stages in shared memory
+DW_SLICE = {torch.float32: 32, torch.bfloat16: 64}  # channels of a block's slice
+
+
+def dw_branches_reference(embeds: Sequence[torch.Tensor], dw_w, scale, bias,
+                          dilations: Tuple[int, ...] = (6, 12, 18)) -> Tuple[torch.Tensor, ...]:
+    """Plain twin of kernel K6, in fp32 from the same inputs.
+
+    embeds: NHWC [B, H, W, EC], 1-4 of them, whose channel concat x (C
+    channels) is the conv's input; dw_w [n_dil, 3, 3, C], scale and bias
+    [n_dil, C] (BN folded).  Returns, per dilation d,
+    relu(depthwise_conv_d(x) * scale + bias) NHWC in the embeds' dtype."""
+    dtype = embeds[0].dtype
+    x = torch.cat([e.float() for e in embeds], dim=-1).permute(0, 3, 1, 2)
+    c = x.shape[1]
+    outs = []
+    for i, d in enumerate(dilations):
+        k = dw_w[i].float().permute(2, 0, 1).unsqueeze(1)  # [C, 1, 3, 3]
+        y = F.conv2d(x, k, padding=d, dilation=d, groups=c)
+        y = F.relu(y * scale[i].float()[:, None, None] + bias[i].float()[:, None, None])
+        outs.append(y.permute(0, 2, 3, 1).to(dtype).contiguous())
+    return tuple(outs)
+
+
+def _dw_launch(embeds, dw_w, scale, bias, dilations):
+    e0 = embeds[0]
+    dt = e0.dtype
+    b, h, w, ec = e0.shape
+    n, n_dil = len(embeds), len(dilations)
+    c = n * ec
+    if dt not in _DTYPES:
+        raise ValueError(f"dw_branches takes float32 or bfloat16 embeds, got {dt}")
+    if (not 1 <= n <= 4 or ec % DW_SLICE[dt] or not 1 <= n_dil <= 3
+            or not all(1 <= d <= DW_MAX_DILATION for d in dilations)):
+        raise ValueError(
+            f"dw_branches kernel takes 1-4 embeds of a multiple of {DW_SLICE[dt]} channels "
+            f"({dt}) and 1-3 dilations in [1, {DW_MAX_DILATION}]; got {n} x {ec}, {tuple(dilations)}"
+        )
+    if any(e.shape != e0.shape or e.dtype != dt or e.device != e0.device for e in embeds):
+        raise ValueError("dw_branches: embeds differ in shape, dtype or device")
+    if not e0.is_cuda:
+        raise ValueError(f"dw_branches kernel needs CUDA tensors, got {e0.device}")
+    dev = e0.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    dw_w, scale, bias = (t.to(**f32).contiguous() for t in (dw_w, scale, bias))
+    if tuple(dw_w.shape) != (n_dil, 3, 3, c) or tuple(scale.shape) != (n_dil, c) \
+            or tuple(bias.shape) != (n_dil, c):
+        raise ValueError(f"dw_branches weight shapes do not match {n_dil} dilations, C={c}")
+    embeds = [e.contiguous() for e in embeds]
+    if any(e.data_ptr() % 16 for e in embeds):  # the kernel reads 16 bytes per load
+        raise ValueError("dw_branches kernel needs 16-byte aligned embeds")
+    outs = tuple(torch.empty((b, h, w, c), device=dev, dtype=dt) for _ in dilations)
+    if outs[0].numel() == 0:
+        return outs
+    lib = kernels.load("dw_branches")
+    fn = lib.madm_dw_branches
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                                              ctypes.POINTER(ctypes.c_int)]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    ptrs = (ctypes.c_void_p * n)(*[e.data_ptr() for e in embeds])
+    out_ptrs = (ctypes.c_void_p * n_dil)(*[o.data_ptr() for o in outs])
+    dils = (ctypes.c_int * n_dil)(*[int(d) for d in dilations])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[dt], ptrs, n, dw_w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 out_ptrs, n_dil, dils, b, h, w, ec, stream)
+    kernels.check(lib, err, "dw_branches launch")
+    dw_branches.launches += 1
+    return outs
+
+
+def dw_branches(embeds: Sequence[torch.Tensor], dw_w, scale, bias,
+                dilations: Tuple[int, ...] = (6, 12, 18)) -> Tuple[torch.Tensor, ...]:
+    """relu(bn(depthwise_conv_d(concat(embeds)))) for each dilation, the
+    concat never built.  Arguments as in ``dw_branches_reference``."""
+    if embeds[0].device.type == "cpu":
+        return dw_branches_reference(embeds, dw_w, scale, bias, dilations)
+    return _dw_launch(embeds, dw_w, scale, bias, dilations)
+
+
+dw_branches.launches = 0
+
+
+# ------------------------------------------------------------------- K7
+ARGMAX_MAX_CLASSES = 32  # the kernel pads the classes to 16 or 32
+
+
+def matmul_argmax_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel K7: first-occurrence argmax over the last dim of
+    x @ w + bias in fp32.  x [B, H, W, C], w [C, NC], bias [NC] -> int32 [B, H, W]."""
+    from ..models.daformer import argmax_classes
+
+    return argmax_classes(x.float() @ w.float() + bias.float(), dim=-1)
+
+
+def _argmax_launch(x, w, bias):
+    dt = x.dtype
+    *lead, c = x.shape
+    nc = w.shape[-1]
+    if dt not in _DTYPES:
+        raise ValueError(f"matmul_argmax takes float32 or bfloat16 x, got {dt}")
+    if tuple(w.shape) != (c, nc) or tuple(bias.shape) != (nc,) or not 1 <= nc <= ARGMAX_MAX_CLASSES:
+        raise ValueError(f"matmul_argmax: w {tuple(w.shape)} and bias {tuple(bias.shape)} do not "
+                         f"fit x's {c} channels, or more than {ARGMAX_MAX_CLASSES} classes")
+    if not x.is_cuda:
+        raise ValueError(f"matmul_argmax kernel needs a CUDA tensor, got {x.device}")
+    x = x.contiguous()
+    if (c * x.element_size()) % 16 or x.data_ptr() % 16:  # 16-byte loads of each pixel
+        raise ValueError("matmul_argmax kernel needs 16-byte aligned pixels")
+    f32 = dict(device=x.device, dtype=torch.float32)
+    w, bias = w.to(**f32).contiguous(), bias.to(**f32).contiguous()
+    out = torch.empty(lead, device=x.device, dtype=torch.int32)
+    if out.numel() == 0:
+        return out
+    lib = kernels.load("matmul_argmax")
+    fn = lib.madm_matmul_argmax
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_DTYPES[dt], x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 out.numel(), c, nc, stream)
+    kernels.check(lib, err, "matmul_argmax launch")
+    matmul_argmax.launches += 1
+    return out
+
+
+def matmul_argmax(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """argmax(x @ w + bias) over the last dim, the eval conv_seg + argmax,
+    without the logits reaching memory.  x [B, H, W, C] (w and bias are read
+    as fp32) -> int32 [B, H, W]."""
+    if x.device.type == "cpu":
+        return matmul_argmax_reference(x, w, bias)
+    return _argmax_launch(x, w, bias)
+
+
+matmul_argmax.launches = 0
+
+
+# ----------------------------------------------------------------- heads
 def _fold_bn(bn: torch.nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval BatchNorm -> per-channel (scale, bias) in fp32."""
     s = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
@@ -157,13 +308,62 @@ def aspp_head_forward(head, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         dw_s.append(s)
         dw_b.append(bb)
         s, bb = _fold_bn(m.pointwise_conv.bn)
-        pw_w.append(m.pointwise_conv.conv.weight[:, :, 0, 0].t())  # [C, PC]
+        pw_w.append(_pointwise(m.pointwise_conv.conv))  # [C, PC]
         pw_s.append(s)
         pw_b.append(bb)
     fused = aspp_fused(
         embeds, torch.stack(dw_w), torch.stack(dw_s), torch.stack(dw_b),
         torch.stack(pw_w).to(dt), torch.stack(pw_s), torch.stack(pw_b),
-        a0.conv.weight[:, :, 0, 0].t().to(dt), s_a0, b_a0, tuple(head.dilations[1:]),
+        _pointwise(a0.conv).to(dt), s_a0, b_a0, tuple(head.dilations[1:]),
     )
     y = fl.bottleneck(fused.permute(0, 3, 1, 2))
     return argmax_classes(head.conv_seg(y))
+
+
+def _pointwise(conv: torch.nn.Conv2d) -> torch.Tensor:
+    """A 1x1 conv's weight as the [Cin, Cout] matrix of an NHWC product."""
+    return conv.weight[:, :, 0, 0].t()
+
+
+def argmax_head_forward(head, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The 'argmax' eval head: the module head up to the bottleneck, then
+    conv_seg + argmax in ``matmul_argmax`` (K7); ids [B, H, W] int32 at the
+    s0 resolution (JAX ``MADM.head_ids``, ``madm.py:1112-1118``)."""
+    pre = head(features, return_pre_seg=True)
+    return matmul_argmax(pre.permute(0, 2, 3, 1), _pointwise(head.conv_seg), head.conv_seg.bias)
+
+
+def fused_head_forward(head, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The 'full' eval head: argmax ids [B, H, W] int32 at the s0 resolution
+    (JAX ``fused_head_forward`` with ``MADM_DW_IMPL=pallas``).
+
+    Embeds and their bilinear resize, the 1024-channel concat, aspp_0 and
+    the pointwise convs as NHWC products, each dilated depthwise conv in
+    ``dw_branches`` (K6, one call a dilation), the bottleneck 3x3 conv in
+    plain torch, conv_seg + argmax in ``matmul_argmax`` (K7).  The
+    products' BN is folded in fp32 and applied in the head's dtype, as JAX
+    does; K6 takes fp32 taps and its BN in fp32."""
+    cd = head.conv_seg.weight.dtype
+    xcat = torch.cat([e.permute(0, 2, 3, 1) for e in head.embeds(features)], dim=-1).contiguous()
+
+    def bn_relu(y, bn, channel_dim=-1):
+        s, b = (t.to(cd) for t in _fold_bn(bn))
+        if channel_dim == 1:
+            s, b = s[:, None, None], b[:, None, None]
+        return F.relu(y * s + b)
+
+    fl = head.fuse_layer
+    a0 = fl.aspp_modules[0]
+    branches = [bn_relu(xcat @ _pointwise(a0.conv), a0.bn)]
+    for m, d in zip(fl.aspp_modules[1:], head.dilations[1:]):
+        dwc, pwc = m.depthwise_conv, m.pointwise_conv
+        s, b = _fold_bn(dwc.bn)
+        dwo = dw_branches([xcat], dwc.conv.weight[:, 0].permute(1, 2, 0)[None].float(),
+                          s[None], b[None], (d,))[0]
+        branches.append(bn_relu(dwo @ _pointwise(pwc.conv), pwc.bn))
+        del dwo
+    x = torch.cat(branches, dim=-1).permute(0, 3, 1, 2)  # NCHW view of NHWC memory
+    del branches
+    bk = fl.bottleneck
+    y = bn_relu(F.conv2d(x, bk.conv.weight, padding=1), bk.bn, channel_dim=1)
+    return matmul_argmax(y.permute(0, 2, 3, 1), _pointwise(head.conv_seg), head.conv_seg.bias)

@@ -1,15 +1,18 @@
 """Where one eval pass spends its time on the card.
 
-    python -m madm_torch.profile_eval [--batch 1] [--out chiprun_out/profile_eval.json]
+    python -m madm_torch.profile_eval [--batch 1] [--eval-head full] [--slide-form batch] [--out PATH]
 
-Runs the flagship config (full SD-v1.4, 512x512, bf16) on seeded random
-weights and reports, after warm-up:
-- the mean device time of ``PASSES`` back-to-back ``eval_forward_ids``
-  passes (CUDA events around the run), as ``chip_smoke.py`` times them;
+Runs the flagship config (full SD-v1.4, bf16) on seeded random weights, a
+512x512 crop through ``eval_forward_ids`` in the given eval head (the
+config's, 'auto', by default), or with ``--slide-form`` a 512x1024 image
+through the sliding window in that form, and reports, after warm-up:
+- the mean device time of ``PASSES`` back-to-back passes (CUDA events
+  around the run), as ``chip_smoke.py`` times them;
 and for one more pass:
 - the host-clock pass time (ends in a synchronize);
 - device time per stage (CUDA events from forward hooks on the VAE encoder,
-  UNet, VAE decoder and projections; the head is the rest of the pass);
+  UNet, VAE decoder and projections, summed over their calls; the head and
+  the stitching are the rest of the pass);
 - device time per kernel and per kernel family from ``torch.profiler``, and
   the device's idle share (1 - kernel time / pass time).
 Needs a GPU; prints one JSON object and writes it to ``--out``.
@@ -26,6 +29,7 @@ from collections import defaultdict
 import torch
 
 from .device import card_line
+from .evaluation import make_slide_eval_fn
 from .models.madm import MADM, MADMConfig, init_random_
 
 PASSES = 20  # timed back to back for the mean pass time
@@ -33,6 +37,8 @@ FAMILIES = (  # first match wins; lower-case substrings of kernel names
     ("flash_attention (K1)", ("flash_fwd",)),
     ("flash_attention_backward (K3)", ("dkdv_", "dq_mma", "dq_simt", "delta_kernel")),
     ("aspp_fused (K2)", ("aspp_fused",)),
+    ("dw_branches (K6)", ("dw_branches",)),
+    ("matmul_argmax (K7)", ("matmul_argmax",)),
     ("optimizer (multi-tensor)", ("multi_tensor", "adam")),
     ("convolution", ("fprop", "conv", "implicit", "winograd", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
@@ -75,23 +81,35 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--eval-head", default="auto", help="auto, aspp, argmax, full or none")
+    ap.add_argument("--slide-form", default=None, choices=("window", "batch"),
+                    help="a 512x1024 sliding-window pass in this form")
     ap.add_argument("--out", default="chiprun_out/profile_eval.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a GPU")
 
-    model = init_random_(MADM(MADMConfig(), device="cuda"),
+    model = init_random_(MADM(MADMConfig(eval_head=args.eval_head), device="cuda"),
                          torch.Generator(device="cuda").manual_seed(args.seed))
-    images = torch.rand(args.batch, 512, 512, 3, device="cuda",
+    width = 1024 if args.slide_form else 512
+    images = torch.rand(args.batch, 512, width, 3, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(args.seed + 1))
+    if args.slide_form:
+        slide = make_slide_eval_fn(model, form=args.slide_form)
+
+        def run():
+            return slide(images)
+    else:
+        def run():
+            return model.eval_forward_ids(images)
     for _ in range(2):
-        model.eval_forward_ids(images)
+        run()
     torch.cuda.synchronize()
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(PASSES):
-        model.eval_forward_ids(images)
+        run()
     end.record()
     end.synchronize()
     mean_ms = start.elapsed_time(end) / PASSES
@@ -99,18 +117,21 @@ def main() -> None:
     events = _stage_timer(model)
     t0 = time.perf_counter()
     start.record()
-    model.eval_forward_ids(images)
+    run()
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     pass_ms = start.elapsed_time(end)
-    stages = {name: evs[0].elapsed_time(evs[1]) for name, evs in events.items()}
-    stages["head (embeds, K2, bottleneck, conv_seg, argmax) and the rest"] = pass_ms - sum(stages.values())
+    stages = {name: sum(evs[i].elapsed_time(evs[i + 1]) for i in range(0, len(evs), 2))
+              for name, evs in events.items()}
+    stages["head, stitching and the rest"] = pass_ms - sum(stages.values())
 
-    kernel_ms, fam, top = kernel_breakdown(lambda: model.eval_forward_ids(images))
+    kernel_ms, fam, top = kernel_breakdown(run)
     result = {
         "card": card_line(),
         "batch": args.batch,
+        "eval_head": model.eval_head_mode(),
+        "slide_form": args.slide_form,
         "mean_pass_ms": mean_ms,
         "passes": PASSES,
         "pass_ms_host": host_ms,
