@@ -7,36 +7,47 @@ Phases (each prints its lines; any failure raises and exits nonzero):
 1. card: name and power limit;
 2. build: the CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
 3. kernels against their plain twins in bf16 at the main path's shapes (K1
-   and K2 at the eval pass's, K3 at the train step's, K6 and K7 at the
+   and K2 at the eval pass's, K3 at the train step's, K4 and K5 at the
+   packed self-attention's [B,4096,8,40] for B=1 and 2, K6 and K7 at the
    'full' eval head's): max abs error with its tolerance, kernel ms, twin
-   ms, library ms where one PyTorch call computes the same function, and
-   the least time the card could take (bytes at 3.35 TB/s, operations at
-   989 TFLOP/s bf16 on the tensor cores, or 67 TFLOP/s fp32 on the CUDA
-   cores for K6 and K7);
+   ms, library ms where one PyTorch call computes the same function (SDPA
+   forward and backward for K1/K4 and K3/K5), and the least time the card
+   could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16 on the
+   tensor cores, or 67 TFLOP/s fp32 on the CUDA cores for K6 and K7);
 4. the toy-width model in fp32 (TF32 off): the port on CUDA with kernels
    against the port on CPU with twins, logits and ids, in the 'aspp',
    'argmax' and 'full' eval heads (the fp32 bodies of K2, K6 and K7);
 5. the flagship config (full SD-v1.4, 512x512, bf16) on seeded random
    weights: eval_forward_ids on [1,512,512,3] and [2,512,512,3] in the
    'aspp', 'argmax' and 'full' eval heads, with the kernel launch counts of
-   each pass, ms/crop, peak memory and each head's ids against 'aspp';
+   each pass, ms/crop, peak memory and each head's ids against 'aspp'; then
+   the same weights with flash_pack=True in the 'aspp' head (K1 29, K4 5,
+   K2 1), ids against the unpacked pass's;
 6. the toy-width train step in fp32 (TF32 off), shipped TrainConfig: two
    steps on CUDA (K1, K3) against two on CPU (twins) from the same weights,
    batches and random draws: losses, grad_norm, gradients, parameters; then
    the mixed-precision path: one step of a toy whose heads suit K3's bf16
    body, bf16 compute against fp32 compute on CUDA from the same fp32
-   masters: losses, grad_norm and each trained tensor's gradient;
+   masters: losses, grad_norm and each trained tensor's gradient; each of
+   the two again with flash_pack=True at a 256x256 crop, where the S=1024
+   self-attentions take K4/K5 (fp32 bodies at D=4, bf16 bodies at D=8);
 7. the flagship train step (MADMConfig(), shipped TrainConfig) on seeded
    random weights and synthetic batches through madm_torch.train.loop.train:
-   one warm-up and three steps at B=1 and at B=2, with losses, K1/K3 launch
-   counts, ms/step and peak memory of each; after B=1's, one more step in
-   which every trained tensor must get a finite gradient, not all zero, and
-   move; then an eval pass of the trained bf16 model;
+   one warm-up and two steps at B=1 and at B=2, with losses, launch counts,
+   ms/step and peak memory of each; after B=1's, one more step in which
+   every trained tensor must get a finite gradient, not all zero, and move;
+   then an eval pass of the trained bf16 model; all of it again with
+   flash_pack=True (K1 89, K3 54, K4 15, K5 10 a step);
 8. sliding-window eval of [1,512,1024,3] and [2,512,1024,3] images in both
    forms, without and with eval_with_noise=900: ms/image, peak memory,
    K1/K2 launches; then inference_on_dataset over 4 synthetic labelled
    samples, single-crop at batch 2 and sliding-window at batch 1: metrics
-   and s/image.
+   and s/image;
+9. the trainer CLI, ``madm_torch.main.main``, with the depth config at full
+   width in bf16 and model.flash_pack=True on a synthetic PNG dataset of 4
+   images at 512x1024: two iterations at --bs 2, eval, checkpoints (s/iter,
+   metrics, files, launch counts), then --eval-only --init-from the best
+   checkpoint, which must give the same metrics.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -44,6 +55,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import sys
@@ -72,6 +84,12 @@ from madm_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_backward,
     flash_attention_forward,
+    pack_group,
+    packed_attention,
+    packed_attention_backward,
+    packed_attention_backward_reference,
+    packed_attention_forward,
+    packed_attention_reference,
 )
 from madm_torch.train.loop import init_train_state, synthetic_batches, train
 from madm_torch.train.train_step import TrainConfig, make_train_state, sample_draws, train_step
@@ -90,13 +108,25 @@ FLASH_SHAPES = (
     (64, 64, 8, 160, 1), (64, 77, 8, 160, 1),
     (4096, 4096, 1, 512, 2),
 )
+# [B, S, H, D] of the packed self-attentions (the five at S=4096 of a 512x512 pass)
+PACKED_SHAPES = ((1, 4096, 8, 40), (2, 4096, 8, 40))
 ASPP_SHAPES = ((1, 512, 512), (1, 512, 1024))  # eval crop; sliding-window stitched width
 DW_DILATIONS = (6, 12, 18)  # the 'full' head: one K6 call a dilation over the 1024-channel concat
 COUNTERS = {"K1": flash_attention, "K2": aspp_fused, "K3": flash_attention_backward,
+            "K4": packed_attention, "K5": packed_attention_backward,
             "K6": dw_branches, "K7": matmul_argmax}
 # launches of one 512x512 eval pass, by eval head
 EVAL_LAUNCHES = {"aspp": {"K1": 34, "K2": 1}, "argmax": {"K1": 34, "K7": 1},
                  "full": {"K1": 34, "K6": 3, "K7": 1}}
+# with MADMConfig.flash_pack: the five UNet self-attentions at S=4096 (two in
+# down_blocks[0], three in up_blocks[3]) take K4 in place of K1
+PACKED_EVAL_LAUNCHES = {"K1": 29, "K4": 5, "K2": 1}
+# per train step: K1 in 3 backbone passes (teacher, source, mixed) x 34 + 2
+# palette encodes x 1 (the VAE encoder's attention); K3 in 2 grad passes x 32
+# UNet attentions (the VAE runs without a graph); with flash_pack, 5 of each
+# pass's attentions take K4 and 5 of each grad pass's K5
+TRAIN_LAUNCHES = {"K1": 3 * 34 + 2, "K3": 2 * 32}
+PACKED_TRAIN_LAUNCHES = {"K1": 3 * 29 + 2, "K3": 2 * 27, "K4": 3 * 5, "K5": 2 * 5}
 
 
 def log(*a):
@@ -206,6 +236,63 @@ def check_flash_bwd(gen):
     return rows
 
 
+def check_packed(gen):
+    """K4 and K5 at the packed UNet self-attention, [B,4096,8,40] bf16 with
+    G=3 (the last group ragged), against their fp32 twins on the same
+    inputs; SDPA forward and backward at the same shape as the library
+    times.  Bounds count the 8 real heads' work only (K4 4*B*H*S^2*D, K5
+    10*B*H*S^2*D operations), not the TPU's padded and block-diagonal MACs."""
+    rows = []
+    for b, s, h, d in PACKED_SHAPES:
+        g = pack_group(s, s, d, True)
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for _ in range(4))
+        scale = d ** -0.5
+        out = packed_attention_forward(q, k, v, scale, g)
+        grads = packed_attention_backward(q, k, v, do, scale, g)
+        torch.cuda.synchronize()
+        ref = packed_attention_reference(q.float(), k.float(), v.float(), scale)
+        err = (out.float() - ref).abs().max().item()
+        tol = 2.0 ** -7 * max(1.0, ref.abs().max().item())  # bf16 output rounding
+        del ref
+        refs = packed_attention_backward_reference(q.float(), k.float(), v.float(), do.float(), scale)
+        # P and dS rounded to bf16 before the products, q*scale before the
+        # scores (as on the TPU): ~2^-9 relative each over S terms
+        errs = [(x.float() - r).abs().max().item() for x, r in zip(grads, refs)]
+        tols = [2.0 ** -6 * r.abs().max().item() for r in refs]
+        del refs
+        ms = cuda_ms(lambda: packed_attention_forward(q, k, v, scale, g))
+        plain = cuda_ms(lambda: packed_attention_reference(q, k, v, scale), reps=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bwd_ms = cuda_ms(lambda: packed_attention_backward(q, k, v, do, scale, g))
+        bwd_plain = cuda_ms(lambda: packed_attention_backward_reference(q, k, v, do, scale),
+                            reps=3, warmup=1)
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        bwd_lib = cuda_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot, retain_graph=True))
+        del o_lib
+        n = q.numel()
+        bnd, by = bound_ms(2 * 4 * n, 4 * b * h * s * s * d)
+        bwd_bnd, bwd_by = bound_ms(2 * 7 * n, 10 * b * h * s * s * d)
+        row = dict(shape=[b, s, h, d], g=g, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
+                   library_ms=lib, bound_ms=bnd, bound_by=by,
+                   bwd=dict(max_abs_err=max(errs), errs=errs, tols=tols, ms=bwd_ms,
+                            plain_ms=bwd_plain, library_ms=bwd_lib, bound_ms=bwd_bnd,
+                            bound_by=bwd_by))
+        log(f"K4 packed_attention [B,S,H,D]=[{b},{s},{h},{d}] G={g}: max_abs_err={err:.3e} "
+            f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA) "
+            f"bound_ms={bnd:.5f} ({by})")
+        log(f"K5 packed_attention_backward [B,S,H,D]=[{b},{s},{h},{d}] G={g}: "
+            + " ".join(f"{nm}_err={e:.3e} (tol {t:.3e})" for nm, e, t in zip(("dq", "dk", "dv"), errs, tols))
+            + f" ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} library_ms={bwd_lib:.4f} (SDPA backward) "
+            f"bound_ms={bwd_bnd:.5f} ({bwd_by})")
+        if not (err <= tol and all(e <= t for e, t in zip(errs, tols))):
+            raise AssertionError(f"K4/K5 at {row['shape']}: forward error {err} over {tol} or "
+                                 f"gradient errors {errs} over {tols}")
+        rows.append(row)
+    return rows
+
+
 def aspp_inputs(gen, b, h, w):
     def f(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
@@ -293,8 +380,8 @@ def check_argmax(gen):
     tol = 1e-3 * max(1.0, logits.abs().max().item())
     sure = (top2[..., 0] - top2[..., 1]) > tol
     equal = ids == ref
-    agree_sure = equal[sure].float().mean().item()
-    agree = equal.float().mean().item()
+    agree_sure = equal[sure].double().mean().item()
+    agree = equal.double().mean().item()
     err = (logits.gather(-1, ref.long()[..., None]) - logits.gather(-1, ids.long()[..., None])).abs().max().item()
     ms = cuda_ms(lambda: matmul_argmax(x, wt, bias), reps=50)
     plain = cuda_ms(lambda: matmul_argmax_reference(x, wt, bias), reps=10)
@@ -339,10 +426,10 @@ def check_toy():
         ids_gpu = gpu.eval_forward_ids(images, eval_head=mode).cpu()
         counts = launch_counts()
         ids_cpu = cpu.eval_forward_ids(images, eval_head=mode)
-        agree = (ids_gpu == ids_cpu)[sure].float().mean().item()
+        agree = (ids_gpu == ids_cpu)[sure].double().mean().item()
         log(f"toy fp32 CUDA vs CPU, '{mode}' head: ids equal on {agree:.6f} of {int(sure.sum())} "
             f"pixels with top-2 margin > {2 * tol:.1e}; all pixels "
-            f"{(ids_gpu == ids_cpu).float().mean().item():.6f}; launches {counts}")
+            f"{(ids_gpu == ids_cpu).double().mean().item():.6f}; launches {counts}")
         if agree != 1.0:
             raise AssertionError(f"toy-width CUDA '{mode}' head disagrees with the CPU twins")
         if counts != expected:
@@ -359,7 +446,7 @@ def check_toy():
         err = max((f_gpu[k].cpu() - v).abs().max().item() / max(1.0, v.abs().max().item())
                   for k, v in f_cpu.items())
         ids_gpu = make_slide_eval_fn(gpu, form=form)(wide).cpu()
-        agree = (ids_gpu == ids_cpu)[sure].float().mean().item()
+        agree = (ids_gpu == ids_cpu)[sure].double().mean().item()
         log(f"toy fp32 slide eval CUDA vs CPU, form={form}: stitched features max err {err:.3e} of "
             f"max(1, max|feature|) (tol 1e-3); ids equal on {agree:.6f} of {int(sure.sum())} pixels "
             f"with a settled argmax")
@@ -367,27 +454,29 @@ def check_toy():
             raise AssertionError(f"toy slide eval form={form}: CUDA disagrees with the CPU twins")
 
 
-def check_toy_train():
+def check_toy_train(cfg=TOY, expected=TRAIN_LAUNCHES, batch=2):
     """Two shipped-config steps of the toy model, CUDA (kernels) against CPU
-    (twins), fp32 with TF32 off, on the same weights, batches and draws."""
+    (twins), fp32 with TF32 off, on the same weights, batches and draws.
+    With ``cfg.flash_pack`` at a 256x256 crop, the S=1024 self-attentions
+    (D=4, G=4) take K4/K5's fp32 bodies."""
     tc = TrainConfig()
-    cpu = init_random_(MADM(TOY, device="cpu", trainable=True), torch.Generator().manual_seed(SEED))
-    gpu = MADM(TOY, device="cuda", trainable=True)
+    cpu = init_random_(MADM(cfg, device="cpu", trainable=True), torch.Generator().manual_seed(SEED))
+    gpu = MADM(cfg, device="cuda", trainable=True)
     gpu.load_state_dict(cpu.state_dict())
     s_cpu, s_gpu = make_train_state(cpu, tc), make_train_state(gpu, tc)
     gen = torch.Generator().manual_seed(SEED + 3)
-    batches = synthetic_batches(2, TOY.crop_size, TOY.num_classes, gen)
+    batches = synthetic_batches(batch, cfg.crop_size, cfg.num_classes, gen)
     named_cpu, named_gpu = dict(cpu.named_parameters()), dict(gpu.named_parameters())
     trained = [n for n, p in named_cpu.items() if p.requires_grad]
     allowed = {n: torch.zeros_like(named_cpu[n]) for n in trained}
     b1, b2 = 0.9, 0.999
     for t in range(2):
         batch = next(batches)
-        draws = sample_draws(gen, tc, batch["source_label"], TOY.num_classes, cpu.sem_seg_head)
+        draws = sample_draws(gen, tc, batch["source_label"], cfg.num_classes, cpu.sem_seg_head)
         m_cpu = train_step(s_cpu, batch, draws=draws)
         reset_counts()
         m_gpu = train_step(s_gpu, batch, draws=draws)
-        launches = (flash_attention.launches, flash_attention_backward.launches)
+        launches = launch_counts()
         # losses and grad_norm: fp32, other summation orders (the CPU port
         # matches the JAX step to 1e-6 relative)
         worst = max(abs(m_gpu[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items())
@@ -415,16 +504,15 @@ def check_toy_train():
             allowed[n] += 1e-2 * lr + lr * (u(s_gpu) - u(s_cpu)).abs() + ulp2
             diff = (named_gpu[n].detach().cpu() - named_cpu[n].detach()).abs()
             excess = max(excess, (diff - allowed[n]).max().item())
-        log(f"toy train step {t}: CUDA vs CPU losses/grad_norm max rel err {worst:.3e} (tol 1e-4); "
+        log(f"toy train step {t} (crop {cfg.crop_size}, flash_pack={cfg.flash_pack}): CUDA vs CPU "
+            f"losses/grad_norm max rel err {worst:.3e} (tol 1e-4); "
             f"gradients (Adam first moment) max err {grad_err:.3e} of the largest (tol 2e-3); "
             f"parameters within the AdamW bound (max excess {excess:.3e}); "
-            f"CUDA launches K1 {launches[0]}, K3 {launches[1]}; "
-            + " ".join(f"{k}={v:.5f}" for k, v in m_gpu.items()))
+            f"CUDA launches {launches}; " + " ".join(f"{k}={v:.5f}" for k, v in m_gpu.items()))
         if not (worst <= 1e-4 and grad_err <= 2e-3 and excess <= 0.0):
             raise AssertionError(f"toy train step {t}: CUDA disagrees with the CPU twins")
-        if launches != TRAIN_LAUNCHES:
-            raise AssertionError(f"toy train step {t} launched K1 x{launches[0]}, K3 x{launches[1]}; "
-                                 f"expected {TRAIN_LAUNCHES}")
+        if launches != expected:
+            raise AssertionError(f"toy train step {t} launched {launches}; expected {expected}")
 
 
 def unmoved(state, before):
@@ -459,7 +547,7 @@ def grad_groups(model):
     return {k: torch.cat(v) for k, v in out.items()}
 
 
-def check_toy_bf16():
+def check_toy_bf16(crop=TOY.crop_size, flash_pack=False, expected=TRAIN_LAUNCHES):
     """The mixed-precision path (fp32 masters cast to bf16 at each use by
     ``functional_call``): one shipped-config step in bf16 compute against the
     same step in fp32 compute, both on CUDA, from the same masters, batch and
@@ -472,9 +560,12 @@ def check_toy_bf16():
     a third step runs in fp32 with every trained weight perturbed by a
     relative N(0, 2^-9), bf16's rounding, and its distance from fp32 is the
     floor.  bf16 also rounds every activation, so each module's gradient may
-    be 4x that floor (at least 2^-4) from fp32's in l2."""
+    be 4x that floor (at least 2^-4) from fp32's in l2.  With
+    ``flash_pack`` at a 256x256 crop, the S=1024 self-attentions (D=8, G=4)
+    take K4/K5's bf16 bodies in the bf16 step."""
     tc = TrainConfig()
-    cfg32 = dataclasses.replace(TOY, unet_channels=(64, 128, 256, 256), feature_dims=(3, 64, 128, 256))
+    cfg32 = dataclasses.replace(TOY, unet_channels=(64, 128, 256, 256), feature_dims=(3, 64, 128, 256),
+                                crop_size=crop, flash_pack=flash_pack)
     m32 = init_random_(MADM(cfg32, device="cuda", trainable=True),
                        torch.Generator(device="cuda").manual_seed(SEED))
     m16 = MADM(dataclasses.replace(cfg32, compute_dtype=torch.bfloat16), device="cuda", trainable=True)
@@ -495,7 +586,7 @@ def check_toy_bf16():
     pert = train_step(sp, batch, draws=draws)
     reset_counts()
     out = train_step(s16, batch, draws=draws)
-    launches = (flash_attention.launches, flash_attention_backward.launches)
+    launches = launch_counts()
     # losses and grad_norm: means over many pixels; bf16 keeps 8 significant
     # bits (2^-9 relative rounding): a few 2^-8 expected, 2^-5 allowed
     loss_err = max(abs(out[k] - v) / max(abs(v), 1e-3) for k, v in ref.items())
@@ -514,19 +605,19 @@ def check_toy_bf16():
     bad = [k for k, (e, floor, _) in rows.items() if not e <= max(4 * floor, 2.0 ** -4)]
     log("toy bf16 / fp32 / fp32 with weight noise metrics: " + " ".join(
         f"{k}={out[k]:.6f}/{v:.6f}/{pert[k]:.6f}" for k, v in ref.items()))
-    log(f"toy bf16 vs fp32 train step (CUDA, D 8/16/32): losses/grad_norm max rel err "
+    log(f"toy bf16 vs fp32 train step (CUDA, D 8/16/32, crop {crop}, flash_pack={flash_pack}): "
+        f"losses/grad_norm max rel err "
         f"{loss_err:.3e} (tol {2.0 ** -5:.3e}); gradient l2 rel err by module, bf16 (fp32 with "
         f"2^-9 weight noise) [bf16/fp32 norm]: "
         + ", ".join(f"{k} {e:.3e} ({f:.3e}) [{r:.4f}]" for k, (e, f, r) in rows.items())
         + f"; {len(before) - len(faults)} of {len(before)} trained tensors with a finite gradient "
-        f"and their update; launches K1 {launches[0]}, K3 {launches[1]}; "
+        f"and their update; launches {launches}; "
         + " ".join(f"{k}={v:.5f}" for k, v in out.items()))
     if faults or bad or not loss_err <= 2.0 ** -5:
         raise AssertionError(f"bf16 toy train step disagrees with fp32: modules {bad}, "
                              f"loss err {loss_err}, tensors {faults[:10]}")
-    if launches != TRAIN_LAUNCHES:
-        raise AssertionError(f"bf16 toy train step launched K1 x{launches[0]}, K3 x{launches[1]}; "
-                             f"expected {TRAIN_LAUNCHES}")
+    if launches != expected:
+        raise AssertionError(f"bf16 toy train step launched {launches}; expected {expected}")
 
 
 def check_full_grads(state, batches, gen):
@@ -552,22 +643,18 @@ def check_full_grads(state, batches, gen):
         raise AssertionError(f"full-width step: {faults[:10]}")
 
 
-# per train step: K1 in 3 backbone passes (teacher, source, mixed) x 34 + 2
-# palette encodes x 1 (the VAE encoder's attention); K3 in 2 grad passes x 32
-# UNet attentions (the VAE runs without a graph)
-TRAIN_LAUNCHES = (3 * 34 + 2, 2 * 32)
-
-
-def run_full_train(card):
-    """The shipped UDA step at full width through the trainer entry point;
-    returns the (K1, K3) launches of the last B=1 step."""
+def run_full_train(card, flash_pack=False):
+    """The shipped UDA step at full width through the trainer entry point,
+    one warm-up and two timed steps at B=1 and at B=2; returns the launches
+    of the last B=1 step."""
     t0 = time.perf_counter()
-    cfg, tc = MADMConfig(), TrainConfig()
+    cfg, tc = MADMConfig(flash_pack=flash_pack), TrainConfig()
+    expected = PACKED_TRAIN_LAUNCHES if flash_pack else TRAIN_LAUNCHES
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     state = init_train_state(cfg, tc, device="cuda", seed=SEED)
     torch.cuda.synchronize()
     n_train = sum(p.numel() for p in state.params)
-    log(f"full-width train state: MADMConfig() trainable, seeded random weights, {n_train} "
+    log(f"full-width train state: MADMConfig(flash_pack={flash_pack}) trainable, seeded random weights, {n_train} "
         f"trained parameters (fp32 masters, AdamW), built in {time.perf_counter() - t0:.1f} s")
     counts = {}
     for b in (1, 2):
@@ -575,7 +662,7 @@ def run_full_train(card):
         train(state, batches, steps=1, generator=gen)  # warm-up
         torch.cuda.synchronize()
         rows, peaks = [], []
-        for _ in range(3):
+        for _ in range(2):
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -584,19 +671,18 @@ def run_full_train(card):
             end.record()
             end.synchronize()
             ms = start.elapsed_time(end)
-            launches = (flash_attention.launches, flash_attention_backward.launches)
+            launches = launch_counts()
             peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-            log(f"full-width train B={b} step {state.step}: {ms:.1f} ms, peak memory {peaks[-1]:.2f} GiB; "
-                f"K1 launches {launches[0]}, K3 launches {launches[1]}; " + " ".join(
+            log(f"full-width train flash_pack={flash_pack} B={b} step {state.step}: {ms:.1f} ms, peak "
+                f"memory {peaks[-1]:.2f} GiB; launches {launches}; " + " ".join(
                     f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms") + f" [{card}]")
             if not all(math.isfinite(v) for v in m.values()):
                 raise AssertionError(f"non-finite train metrics at B={b}: {m}")
-            if launches != TRAIN_LAUNCHES:
-                raise AssertionError(f"B={b} train step launched K1 x{launches[0]}, K3 x{launches[1]}; "
-                                     f"expected {TRAIN_LAUNCHES}")
+            if launches != expected:
+                raise AssertionError(f"B={b} train step launched {launches}; expected {expected}")
             rows.append(ms)
             counts[b] = launches
-        log(f"full-width train B={b}: {sum(rows) / 3:.1f} ms/step (mean of 3 after 1 warm-up; "
+        log(f"full-width train flash_pack={flash_pack} B={b}: {sum(rows) / 2:.1f} ms/step (mean of 2 after 1 warm-up; "
             f"{', '.join(f'{r:.1f}' for r in rows)}), peak memory {max(peaks):.2f} GiB [{card}]")
         if b == 1:
             check_full_grads(state, batches, gen)
@@ -608,7 +694,7 @@ def run_full_train(card):
     check_ids(ids, (1, 512, 512), cfg.num_classes)
     log(f"eval pass of the trained bf16 model (step {state.step}): ids in range, launches "
         f"{launch_counts()}")
-    if launch_counts() != EVAL_LAUNCHES["aspp"]:
+    if launch_counts() != (PACKED_EVAL_LAUNCHES if flash_pack else EVAL_LAUNCHES["aspp"]):
         raise AssertionError(f"trained model's eval pass launched {launch_counts()}")
     return counts[1]
 
@@ -623,7 +709,7 @@ def run_full(card):
     log(f"full width: MADMConfig() built with seeded random weights in "
         f"{time.perf_counter() - t0:.1f} s, {sum(p.numel() for p in model.parameters())} parameters")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    counts = {}
+    counts, aspp_ids = {}, {}
     for b in (1, 2):
         images = torch.rand(b, 512, 512, 3, device="cuda", generator=gen)
         ids_of = {}
@@ -639,7 +725,7 @@ def run_full(card):
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: model.eval_forward_ids(images, eval_head=mode), reps=5, warmup=0)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            agree = (ids == ids_of["aspp"]).float().mean().item()
+            agree = (ids == ids_of["aspp"]).double().mean().item()
             log(f"full width B={b} '{mode}' head: launches {counts[b, mode]}; ids in range, equal "
                 f"to the 'aspp' head's on {agree:.4f} of pixels; {ms / b:.2f} ms/crop "
                 f"({ms:.2f} ms/pass), peak memory {peak:.2f} GiB [{card}]")
@@ -650,10 +736,63 @@ def run_full(card):
         logits = model.eval_forward(images)
         if not torch.isfinite(logits).all():
             raise AssertionError("non-finite logits")
-        agree = (argmax_classes(logits, dim=-1) == ids_of["aspp"]).float().mean().item()
+        agree = (argmax_classes(logits, dim=-1) == ids_of["aspp"]).double().mean().item()
         log(f"full width B={b}: logits finite; 'aspp' head ids equal the module head's argmax on "
             f"{agree:.4f} of pixels")
-    return model, {mode: counts[1, mode] for mode in EVAL_LAUNCHES}
+        aspp_ids[b] = (images, ids_of["aspp"])
+    # the noise floor of bf16 ids under a rounding change elsewhere: the first
+    # B=2 image alone against the same image in the batch of 2 (unpacked)
+    images, ref_ids = aspp_ids[2]
+    alone = model.eval_forward_ids(images[:1], eval_head="aspp")
+    floor = (alone == ref_ids[:1]).double().mean().item()
+    log(f"full width B=1 against B=2 (same image, unpacked 'aspp'): ids equal on {floor:.4f} of pixels")
+    # the same weights with flash_pack: K4 in place of K1 at S=4096
+    packed = MADM(dataclasses.replace(cfg, flash_pack=True), device="cuda")
+    packed.load_state_dict(model.state_dict())
+    for b, (images, ref_ids) in aspp_ids.items():
+        packed.eval_forward_ids(images, eval_head="aspp")  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        ids = packed.eval_forward_ids(images, eval_head="aspp")
+        torch.cuda.synchronize()
+        counts[b, "packed"] = launch_counts()
+        check_ids(ids, (b, 512, 512), cfg.num_classes)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: packed.eval_forward_ids(images, eval_head="aspp"), reps=5, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        agree = (ids == ref_ids).double().mean().item()
+        log(f"full width flash_pack B={b} 'aspp' head: launches {counts[b, 'packed']}; ids equal the "
+            f"unpacked pass's on {agree:.4f} of pixels; {ms / b:.2f} ms/crop ({ms:.2f} ms/pass), "
+            f"peak memory {peak:.2f} GiB (the unpacked model's weights resident too) [{card}]")
+        if counts[b, "packed"] != PACKED_EVAL_LAUNCHES:
+            raise AssertionError(f"B={b} flash_pack pass launched {counts[b, 'packed']}; "
+                                 f"expected {PACKED_EVAL_LAUNCHES}")
+        # in bf16, K4 rounds P after the normaliser and K1 before it; the
+        # random-weight model turns such rounding changes into id flips at
+        # near-ties (the slide forms, which differ only in batch composition,
+        # agree on ~97%; the B=1/B=2 floor above); the fp32 check below holds
+        # the function itself
+        if agree < 0.95:
+            raise AssertionError(f"B={b} flash_pack ids agree with the unpacked pass on only {agree:.4f}")
+    del packed
+    # fp32, same weights and B=1 images: packed and unpacked differ only in
+    # summation order, so the ids must agree on >= 99% of pixels
+    ids32 = {}
+    for pack in (False, True):
+        m32 = MADM(dataclasses.replace(cfg, compute_dtype=torch.float32, flash_pack=pack), device="cuda")
+        m32.load_state_dict(model.state_dict())
+        reset_counts()
+        ids32[pack] = m32.eval_forward_ids(aspp_ids[1][0], eval_head="aspp")
+        torch.cuda.synchronize()
+        counts[pack, "fp32"] = launch_counts()
+        del m32
+    agree = (ids32[True] == ids32[False]).double().mean().item()
+    log(f"full width fp32 B=1 'aspp' head, flash_pack against not: ids equal on {agree:.6f} of pixels "
+        f"(tol 0.99); launches {counts[True, 'fp32']} and {counts[False, 'fp32']}")
+    if agree < 0.99 or counts[True, "fp32"] != PACKED_EVAL_LAUNCHES:
+        raise AssertionError(f"fp32 flash_pack pass: ids agree on {agree}, launches {counts[True, 'fp32']}")
+    torch.cuda.empty_cache()
+    return model, {mode: counts[1, mode] for mode in (*EVAL_LAUNCHES, "packed")}
 
 
 def check_ids(ids, shape, num_classes):
@@ -706,8 +845,8 @@ def run_slide_and_dataset(model, card):
         # the forms differ only in batch composition, which moves bf16 rounding
         # through the UNet: near-ties of the random weights flip (phase 4 holds
         # the two forms to the CPU twins in fp32)
-        same = (ids_of["window", None] == ids_of["batch", None]).float().mean().item()
-        moved = (ids_of["batch", None] != ids_of["batch", 900]).float().mean().item()
+        same = (ids_of["window", None] == ids_of["batch", None]).double().mean().item()
+        moved = (ids_of["batch", None] != ids_of["batch", 900]).double().mean().item()
         log(f"slide eval B={b}: 'window' and 'batch' ids equal on {same:.4f} of pixels; "
             f"eval_with_noise=900 changes {moved:.4f} of them")
         if same < 0.95 or moved < 0.05:
@@ -734,6 +873,112 @@ def run_slide_and_dataset(model, card):
     return rows
 
 
+CLI_CONFIG = "madm_torch/configs/SemSeg/MTMADISE/mtmadise_cityscapes_rgb_to_depth_11.py"
+# two B=2 train steps and an eval of 4 test images, flash_pack on
+CLI_TRAIN_LAUNCHES = {k: 2 * v for k, v in PACKED_TRAIN_LAUNCHES.items()}
+CLI_EVAL_LAUNCHES = {k: 4 * v for k, v in PACKED_EVAL_LAUNCHES.items()}
+
+
+def write_png_dataset(root, n=4, h=512, w=1024, seed=SEED + 10):
+    """A synthetic PNG dataset for the CLI: n 512x1024 source images with
+    Cityscapes-id labels (19 classes), n target images with DELIVER-id labels
+    (25), train and test manifests, and the rare-class statistics of the
+    source labels (``sample_class_stats.json``, ``samples_with_class.json``)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    train = {"source_data": {"RGB": [], "label": []}, "target_data": {"second_modality": []}}
+    test = {"source_data": {"RGB": [], "label": []}, "target_data": {"second_modality": [], "label": []}}
+    stats, with_class = [], {}
+    for i in range(n):
+        names = (f"src{i}.png", f"lbl{i}.png", f"tgt{i}.png", f"tlbl{i}.png")
+        lbl = rng.integers(0, 19, (h, w), dtype=np.uint8)
+        for name, arr in zip(names, (rng.integers(0, 256, (h, w, 3), dtype=np.uint8), lbl,
+                                     rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+                                     rng.integers(0, 25, (h, w), dtype=np.uint8))):
+            Image.fromarray(arr).save(root / name)
+        train["source_data"]["RGB"].append(names[0])
+        train["source_data"]["label"].append(names[1])
+        train["target_data"]["second_modality"].append(names[2])
+        test["target_data"]["second_modality"].append(names[2])
+        test["target_data"]["label"].append(names[3])
+        counts = np.bincount(lbl.ravel(), minlength=19)
+        stats.append({"file": names[1], **{str(c): int(k) for c, k in enumerate(counts) if k}})
+        for c, k in enumerate(counts):
+            with_class.setdefault(str(c), []).append([names[1], int(k)])
+    for name, obj in (("train.json", train), ("test.json", test), ("sample_class_stats.json", stats),
+                      ("samples_with_class.json", with_class)):
+        (root / name).write_text(json.dumps(obj))
+
+
+def run_cli(card):
+    """``python -m madm_torch.main`` on the card: the shipped depth config at
+    full width in bf16 with model.flash_pack=True (rare-class sampling on),
+    on a synthetic PNG dataset of 4 images at 512x1024: two train iterations
+    at --bs 2, an eval of the 4 test images, the periodic and the best
+    checkpoint; then --eval-only --init-from the best checkpoint, which must
+    give the same metrics.  Each run's kernel launches are counted."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from madm_torch.main import main as cli_main
+
+    # the CLI logs at INFO (environment, parameter table, per-class results)
+    # where no logging is configured; this script prints its own summary
+    logging.basicConfig(level=logging.WARNING)
+    with tempfile.TemporaryDirectory(prefix="madm_cli_") as tmp:
+        root = Path(tmp) / "data"
+        root.mkdir()
+        write_png_dataset(root)
+        out = Path(tmp) / "run"
+        argv = ["--config-file", CLI_CONFIG, "--bs", "2", "--max_iter", "2", "--eval_iter", "2",
+                "--source_root", str(root), "--target_root", str(root), "--output", str(out),
+                f"dataloader.train.dataset.json_path={str(root / 'train.json')!r}",
+                f"dataloader.test.dataset.json_path={str(root / 'test.json')!r}",
+                "train.log_period=1", "model.flash_pack=True"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        rows = [json.loads(line) for line in (out / "metrics.json").read_text().splitlines()]
+        iter_s = [r["time"] for r in rows if "total_loss" in r and "eval/mIoU" not in r]
+        results = {k[5:]: v for k, v in rows[-1].items() if k.startswith("eval/")}
+        files = sorted(f"{p.relative_to(out)} ({p.stat().st_size} B)" for p in out.rglob("*") if p.is_file())
+        expected = {k: CLI_TRAIN_LAUNCHES.get(k, 0) + CLI_EVAL_LAUNCHES.get(k, 0)
+                    for k in {*CLI_TRAIN_LAUNCHES, *CLI_EVAL_LAUNCHES}}
+        log(f"CLI train (depth config, full width, bf16, flash_pack, --bs 2 --max_iter 2 --eval_iter 2): "
+            f"step {state.step}, {wall:.1f} s in all; s/iter {', '.join(f'{s:.3f}' for s in iter_s)} "
+            f"(the first includes set-up); eval {results}; launches {counts}; files {files} [{card}]")
+        del state
+        torch.cuda.empty_cache()
+        if counts != expected:
+            raise AssertionError(f"CLI run launched {counts}; expected {expected}")
+        if not (results and all(math.isfinite(v) for v in results.values())
+                and any(f.startswith("model_best.pth") for f in files)
+                and all(math.isfinite(r["total_loss"]) for r in rows if "total_loss" in r)):
+            raise AssertionError(f"CLI run: eval {results}, files {files}")
+
+        ins = argv.index("--output")
+        argv2 = argv[:ins] + ["--output", str(Path(tmp) / "eval"), "--eval-only", "--init-from",
+                              str(out / "model_best.pth")] + argv[ins + 2:]
+        reset_counts()
+        t0 = time.perf_counter()
+        again = cli_main(argv2)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"CLI --eval-only --init-from model_best.pth: {time.perf_counter() - t0:.1f} s; "
+            f"eval {again}; launches {counts} [{card}]")
+        torch.cuda.empty_cache()
+        if counts != CLI_EVAL_LAUNCHES:
+            raise AssertionError(f"CLI eval-only launched {counts}; expected {CLI_EVAL_LAUNCHES}")
+        if {k: float(again[k]) for k in results} != results:
+            raise AssertionError(f"--eval-only gave {again}, the training run's eval {results}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -745,23 +990,49 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
+    t_phase = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     log(f"build: {kernels.build():.1f} s for {', '.join(kernels.KERNELS)} "
         f"(sm_90a, {kernels.BUILD_DIR})")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flash_rows = check_flash(gen)
     bwd_rows = check_flash_bwd(gen)
+    packed_rows = check_packed(gen)
     aspp_rows = check_aspp(gen)
     dw_rows = check_dw(gen)
     argmax_row = check_argmax(gen)
+    phase_done("2-3 (build, kernels against twins)")
     check_toy()
+    phase_done("4 (toy eval, CUDA against CPU)")
     model, eval_counts = run_full(card)
+    phase_done("5 (full-width eval passes)")
     run_slide_and_dataset(model, card)
+    phase_done("8 (slide eval, inference_on_dataset)")
     del model
     torch.cuda.empty_cache()
     check_toy_train()
+    phase_done("6 (toy train, CUDA against CPU)")
+    # S=1024 packs at a 256x256 crop; a 64-wide head and B=1 keep the CPU side short
+    check_toy_train(dataclasses.replace(TOY, crop_size=(256, 256), head_channels=64, flash_pack=True),
+                    PACKED_TRAIN_LAUNCHES, batch=1)
+    phase_done("6 (toy flash_pack train at 256x256, CUDA against CPU)")
     check_toy_bf16()
-    k3_launches = run_full_train(card)[1]
+    check_toy_bf16((256, 256), True, PACKED_TRAIN_LAUNCHES)
+    phase_done("6 (toy bf16 against fp32, without and with flash_pack)")
+    k3_launches = run_full_train(card)["K3"]
+    phase_done("7 (full-width train)")
+    packed_train = run_full_train(card, flash_pack=True)
+    phase_done("7 (full-width train, flash_pack)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_cli(card)
+    phase_done("9 (the CLI)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows)
@@ -797,6 +1068,21 @@ def main() -> int:
          "ms": per_step("ms"), "plain_ms": per_step("plain_ms"), "bound_ms": per_step("bound_ms"),
          "bound_by": bound_ms(k3_b, k3_f)[1], "library_ms": per_step("library_ms"),
          "per": "one train step at B=1", "shapes": bwd_rows},
+        {"name": "packed_attention", "route": "cuda",
+         "source": "madm_torch/csrc/flash_attention_packed.cu",
+         "replaces": "madm_tpu/ops/flash_attention.py:383", "launches": eval_counts["packed"]["K4"],
+         "max_abs_err": max(r["max_abs_err"] for r in packed_rows),
+         **{k: 5 * packed_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": packed_rows[0]["bound_by"],
+         "per": "one 512x512 flash_pack pass at B=1 (its 5 calls at [1,4096,8,40])",
+         "shapes": packed_rows},
+        {"name": "packed_attention_backward", "route": "cuda",
+         "source": "madm_torch/csrc/flash_attention_packed_bwd.cu",
+         "replaces": "madm_tpu/ops/flash_attention.py:254", "launches": packed_train["K5"],
+         "max_abs_err": max(r["bwd"]["max_abs_err"] for r in packed_rows),
+         **{k: 10 * packed_rows[0]["bwd"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": packed_rows[0]["bwd"]["bound_by"],
+         "per": "one flash_pack train step at B=1 (its 10 calls at [1,4096,8,40])"},
         {"name": "dw_branches", "route": "cuda", "source": "madm_torch/csrc/dw_branches.cu",
          "replaces": "madm_tpu/ops/aspp.py:44", "launches": eval_counts["full"]["K6"],
          "max_abs_err": max(r["max_abs_err"] for r in dw_rows),

@@ -1,12 +1,13 @@
 """madm_torch: MADM in PyTorch for an NVIDIA H100 — the eval path (single
-crop and sliding window, four eval heads, ``madm_torch.evaluation``) and the
-shipped UDA train step (``madm_torch.train``).
+crop and sliding window, four eval heads, ``madm_torch.evaluation``), the
+shipped UDA train step (``madm_torch.train``) and the trainer CLI
+(``python -m madm_torch.main``).
 
 A port of ``madm_tpu`` (the JAX reference, which stays as it is) that imports
 neither JAX nor ``madm_tpu``.  Its hand-written CUDA kernels (flash attention
-forward and backward, the fused sep-ASPP layer, the dilated depthwise convs
-and conv_seg + argmax of the fused eval heads) build from ``csrc/`` at first
-CUDA use; CPU tensors take their plain PyTorch twins.
+forward and backward, plain and packed-head, the fused sep-ASPP layer, the
+dilated depthwise convs and conv_seg + argmax of the fused eval heads) build
+from ``csrc/`` at first CUDA use; CPU tensors take their plain PyTorch twins.
 """
 
 from __future__ import annotations

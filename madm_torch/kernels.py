@@ -24,7 +24,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 )
-KERNELS = ("flash_attention", "flash_attention_bwd", "aspp_fused", "dw_branches", "matmul_argmax")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_attention_packed",
+           "flash_attention_packed_bwd", "aspp_fused", "dw_branches", "matmul_argmax")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -74,6 +74,10 @@ class MADMConfig:
     # the module head to the bottleneck, then K7; 'full' K6 for the dilated
     # depthwise convs and K7; 'none' the module head and an argmax
     eval_head: str = "auto"
+    # the packed-head attention path (the JAX package's MADM_FLASH_PACK, off
+    # by default as there): the UNet self-attentions that pack_group picks
+    # run kernels K4/K5 in place of K1/K3
+    flash_pack: bool = False
 
     def __post_init__(self):
         for name, value in _UNPORTED.items():
@@ -117,7 +121,7 @@ class MADM(nn.Module):
 
         with torch.device(self.device):
             self.vae = vae_lib.AutoencoderKL(vae_ch)
-            self.unet = unet_lib.UNet2DCondition(unet_ch, cfg.unet_block_indices)
+            self.unet = unet_lib.UNet2DCondition(unet_ch, cfg.unet_block_indices, cfg.flash_pack)
             domains = ["clip_project_rgb"] + ([] if cfg.same_cond_params else ["clip_project_others"])
             self.prompt = nn.ModuleDict(
                 {k: prompt_lib.ClipFeatureProject(unet_ch[0] * 4) for k in domains}

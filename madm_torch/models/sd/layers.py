@@ -118,11 +118,13 @@ class Upsample2D(nn.Module):
 
 class Attention(nn.Module):
     """Multi-head attention over tokens [B, S, C] with an optional context;
-    q/k/v have no bias."""
+    q/k/v have no bias.  ``pack``: the packed-head kernels where
+    ``pack_group`` picks the shape (``MADMConfig.flash_pack``)."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, pack: bool = False):
         super().__init__()
+        self.pack = pack
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
@@ -138,7 +140,7 @@ class Attention(nn.Module):
         q = self.to_q(x).view(b, s, self.heads, self.dim_head)
         k = self.to_k(ctx).view(b, sk, self.heads, self.dim_head)
         v = self.to_v(ctx).view(b, sk, self.heads, self.dim_head)
-        out = dot_product_attention(q, k, v)
+        out = dot_product_attention(q, k, v, pack=self.pack)
         return self.to_out[0](out.reshape(b, s, self.heads * self.dim_head))
 
 
@@ -165,12 +167,13 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> GEGLU FF, pre-LayerNorm, residuals."""
+    """self-attn -> cross-attn -> GEGLU FF, pre-LayerNorm, residuals; ``pack``
+    goes to the self-attention (cross-attention never packs)."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int, pack: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, dim_head)
+        self.attn1 = Attention(dim, heads, dim_head, pack=pack)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.attn2 = Attention(dim, heads, dim_head, context_dim=context_dim)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
@@ -186,13 +189,14 @@ class Transformer2DModel(nn.Module):
     """GN -> 1x1 proj_in -> transformer block -> 1x1 proj_out, plus residual.
     proj_in/proj_out are 1x1 convs as in SD-v1.x checkpoints."""
 
-    def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, channels: int, heads: int, dim_head: int, context_dim: int,
+                 pack: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, inner, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, context_dim)]
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim, pack)]
         )
         self.proj_out = nn.Conv2d(inner, channels, 1)
 

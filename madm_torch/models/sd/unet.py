@@ -6,6 +6,8 @@
   attention) is returned, smallest resolution first.
 - an optional learned residual [B, 1280] (or [B, 1, 1280]) is added to the
   time embedding (the prompt generator's ``cond_time``).
+- ``flash_pack`` sends the self-attentions that ``pack_group`` picks through
+  the packed-head kernels K4/K5 (at 512x512: the five at S=4096).
 The whole UNet runs: eps feeds the VAE decoder that gives the s0 feature.
 NCHW; diffusers module names.
 """
@@ -38,7 +40,7 @@ OUT_CHANNELS = 4
 
 class UNet2DCondition(nn.Module):
     def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS,
-                 unet_block_indices: Sequence[int] = (5, 8, 11)):
+                 unet_block_indices: Sequence[int] = (5, 8, 11), flash_pack: bool = False):
         super().__init__()
         boc = tuple(block_out_channels)
         self.boc = boc
@@ -47,7 +49,7 @@ class UNet2DCondition(nn.Module):
         n = len(boc)
 
         def transformer(c):
-            return Transformer2DModel(c, NUM_HEADS, c // NUM_HEADS, CROSS_ATTENTION_DIM)
+            return Transformer2DModel(c, NUM_HEADS, c // NUM_HEADS, CROSS_ATTENTION_DIM, flash_pack)
 
         self.conv_in = nn.Conv2d(IN_CHANNELS, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], temb)

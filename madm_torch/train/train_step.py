@@ -115,6 +115,85 @@ class TrainState:
     step: int = 0
 
 
+# defaults of the knobs build_train_config reads from the model node: the
+# JAX package's MADMConfig fields, used where a config does not set them
+_KNOB_DEFAULTS: Dict[str, Any] = {
+    "ema_alpha": 0.999, "pseudo_threshold": 0.968, "blur": True, "color_jitter_strength": 0.2,
+    "color_jitter_probability": 0.2, "enable_mixup": True, "rev_noise_sup": False,
+    "rev_noise_end_iter": None, "rev_noise_gradually": False, "denoise_timestep_range": None,
+    "vae_decoder_loss": "st", "vae_decoder_loss_type": "L1", "vae_decoder_loss_weight": (1.0, 1.0),
+    "reg_uncertain": False, "pseudo_weight_scope": "sample", "train_palette": (),
+    "pl_crop": False, "mic": False, "mic_reg": 0.0, "remove_texture": False,
+    "denoise_supervise": 0.0, "fd": 0.0, "fd_attention": 0.0, "target_attention_loss": False,
+    "noise_reg": 0.0, "mask_prompt_ratio": 0.0, "prompt_perturbation": 0.0,
+    "prompt_confidence": None, "merge_with_pl_data": None, "reg_target_palette": None,
+}
+# optimizer-node values the port takes (the shipped AdamW); others raise
+_OPTIMIZER_PORTED: Dict[str, Any] = {
+    "name": "adamw", "schedule": "multistep", "unet_lr": None, "betas": (0.9, 0.999),
+    "eps": 1e-8, "weight_decay_norm": 0.0, "weight_decay_bias": 0.0, "no_momentum": None,
+    "mu_dtype": None,
+}
+
+
+def build_train_config(cfg) -> TrainConfig:
+    """TrainConfig from a loaded LazyConfig tree (the JAX package's
+    ``build_train_config``): the UDA knobs from the model node, where an
+    optional ``cfg.uda`` namespace overrides them; ``max_iter`` and the clip
+    from ``cfg.train``; lr and weight decay from ``cfg.optimizer``, whose
+    other settings must be the shipped AdamW's."""
+    uda = dict(cfg.get("uda", {}) or {})
+    model = cfg.model
+
+    def knob(name):
+        if uda.get(name) is not None:
+            return uda[name]
+        return model.get(name, _KNOB_DEFAULTS[name])
+
+    opt = cfg.optimizer
+    for name, ported in _OPTIMIZER_PORTED.items():
+        value = opt.get(name, ported)
+        if (tuple(value) if isinstance(value, list) else value) != ported:
+            raise NotImplementedError(f"optimizer.{name}={value!r} is not ported to madm_torch yet "
+                                      f"(it takes {ported!r})")
+    return TrainConfig(
+        max_iter=cfg.train.max_iter,
+        ema_alpha=knob("ema_alpha"),
+        pseudo_threshold=knob("pseudo_threshold"),
+        color_jitter_strength=knob("color_jitter_strength"),
+        color_jitter_probability=knob("color_jitter_probability"),
+        blur=knob("blur"),
+        enable_mixup=knob("enable_mixup"),
+        rev_noise_sup=knob("rev_noise_sup"),
+        rev_noise_end_iter=knob("rev_noise_end_iter") or cfg.train.max_iter,
+        rev_noise_gradually=knob("rev_noise_gradually"),
+        denoise_timestep_range=tuple(knob("denoise_timestep_range") or (0, 0)),
+        vae_decoder_loss=uda.get("vae_decoder_loss") or model.get("vae_decoder_loss", "st") or "",
+        vae_decoder_loss_type=knob("vae_decoder_loss_type"),
+        vae_decoder_loss_weight=tuple(list(knob("vae_decoder_loss_weight")) + [1.0])[:2],
+        reg_uncertain=knob("reg_uncertain"),
+        pseudo_weight_scope=knob("pseudo_weight_scope"),
+        train_palette=tuple(knob("train_palette")),
+        lr=opt["lr"],
+        weight_decay=opt["weight_decay"],
+        grad_clip=cfg.train.get("grad_clip") or 0.01,
+        pl_crop=knob("pl_crop"),
+        mic=knob("mic"),
+        mic_reg=float(knob("mic_reg")),
+        remove_texture=knob("remove_texture"),
+        denoise_supervise=float(knob("denoise_supervise")),
+        fd=float(knob("fd")),
+        fd_attention=float(knob("fd_attention") or 0.0),
+        target_attention_loss=bool(knob("target_attention_loss")),
+        noise_reg=float(knob("noise_reg") or 0.0),
+        mask_prompt_ratio=float(knob("mask_prompt_ratio") or 0.0),
+        prompt_perturbation=float(knob("prompt_perturbation") or 0.0),
+        prompt_confidence=knob("prompt_confidence"),
+        merge_with_pl_data=knob("merge_with_pl_data"),
+        reg_target_palette=knob("reg_target_palette"),
+    )
+
+
 def make_train_state(model: MADM, tc: TrainConfig) -> TrainState:
     named = trainable_parameters(model)
     return TrainState(model=model, tc=tc,
