@@ -6,8 +6,12 @@
 Phases (each prints its lines; any failure raises and exits nonzero):
 1. card: name and power limit;
 2. build: the CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
-3. kernels against their plain twins in bf16 at the main path's shapes (K1
-   and K2 at the eval pass's, K3 at the train step's, K4 and K5 at the
+3. what ptxas made of K1's and K3's kernels (registers, shared memory,
+   spills), their HGMMA (wgmma) and UTMALDG (TMA load) SASS counts, and the
+   host cost of a tensor map and of a K1 call; then kernels against their
+   plain twins in bf16 at the main path's shapes (K1 and K2 at the eval
+   pass's, K3 at the train step's, K1 and K3 also at B=2 for Sq=4096, each
+   K1/K3 row with its launch plan held to the C library's; K4 and K5 at the
    packed self-attention's [B,4096,8,40] for B=1 and 2, K6 and K7 at the
    'full' eval head's): max abs error with its tolerance, kernel ms, twin
    ms, library ms where one PyTorch call computes the same function (SDPA
@@ -56,8 +60,10 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import ctypes
 import json
 import math
+import subprocess
 import sys
 import time
 
@@ -81,9 +87,11 @@ from madm_torch.ops.aspp import (
 from madm_torch.ops.flash_attention import (
     attention_backward_reference,
     attention_reference,
+    backward_plan,
     flash_attention,
     flash_attention_backward,
     flash_attention_forward,
+    forward_plan,
     pack_group,
     packed_attention,
     packed_attention_backward,
@@ -108,6 +116,9 @@ FLASH_SHAPES = (
     (64, 64, 8, 160, 1), (64, 77, 8, 160, 1),
     (4096, 4096, 1, 512, 2),
 )
+# (B, Sq, Sk, H, D, launches per pass): FLASH_SHAPES at B=1, and B=2 (the
+# shipped train step's batch) at the Sq=4096 shapes; pass and step sums use B=1
+FLASH_CASES = tuple((1, *s) for s in FLASH_SHAPES) + tuple((2, *s) for s in FLASH_SHAPES if s[0] == 4096)
 # [B, S, H, D] of the packed self-attentions (the five at S=4096 of a 512x512 pass)
 PACKED_SHAPES = ((1, 4096, 8, 40), (2, 4096, 8, 40))
 ASPP_SHAPES = ((1, 512, 512), (1, 512, 1024))  # eval crop; sliding-window stitched width
@@ -167,26 +178,52 @@ def launch_counts():
     return {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
 
 
+def plan_line(kind, b, sq, sk, h, d):
+    """The Python launch plan of K1 or K3 at a bf16 shape, held to the one
+    the C library computes; returns a short description."""
+    out = (ctypes.c_int * 9)()
+    if kind == "K1":
+        plan = forward_plan(b, sq, sk, h, d, torch.bfloat16)
+        kernels.load("flash_attention").madm_flash_attention_fwd_plan(b, sq, sk, h, d, out)
+        mine = [plan.dn, plan.bq, plan.bk, plan.warpgroups, int(plan.split_d), plan.stages,
+                plan.launches[0].smem]
+        theirs = list(out)[:7]
+    else:
+        plan = backward_plan(b, sq, sk, h, d, torch.bfloat16)
+        fn = kernels.load("flash_attention_bwd").madm_flash_attention_bwd_plan
+        fn.restype = ctypes.c_longlong
+        nbytes = fn(b, sq, sk, h, d, out)
+        smem = {l.kernel: l.smem for l in plan.launches}
+        mine = [plan.dn, plan.bq, plan.warpgroups, plan.nsplit, plan.bk_dq, plan.bq_dq // 64, plan.sqp,
+                smem["dkdv_tma"], smem["dq_tma"], plan.workspace_bytes]
+        theirs = list(out) + [nbytes]
+    if mine != theirs:
+        raise AssertionError(f"{kind} plan at {[b, sq, sk, h, d]}: Python {mine}, C {theirs}")
+    return ("plan " + ", ".join(f"{l.kernel} grid {l.grid} x{l.threads} smem {l.smem}" for l in plan.launches)
+            + (f", nsplit {plan.nsplit}" if kind == "K3" else ""))
+
+
 def check_flash(gen):
     rows = []
-    for sq, sk, h, d, per_pass in FLASH_SHAPES:
-        q, k, v = (torch.randn(1, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
+    for b, sq, sk, h, d, per_pass in FLASH_CASES:
+        q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = attention_reference(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
         tol = 2.0 ** -7 * max(1.0, ref.abs().max().item())  # bf16 output rounding
+        del ref
         ms = cuda_ms(lambda: flash_attention(q, k, v))
         plain = cuda_ms(lambda: attention_reference(q, k, v))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bnd, by = bound_ms(nbytes, 4 * h * sq * sk * d)
-        row = dict(shape=[1, sq, sk, h, d], per_pass=per_pass, max_abs_err=err, tol=tol, ms=ms,
+        bnd, by = bound_ms(nbytes, 4 * b * h * sq * sk * d)
+        row = dict(shape=[b, sq, sk, h, d], per_pass=per_pass, max_abs_err=err, tol=tol, ms=ms,
                    plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
-        log(f"K1 flash_attention [B,Sq,Sk,H,D]=[1,{sq},{sk},{h},{d}] x{per_pass}/pass: "
+        log(f"K1 flash_attention [B,Sq,Sk,H,D]=[{b},{sq},{sk},{h},{d}] x{per_pass}/pass: "
             f"max_abs_err={err:.3e} (tol {tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} bound_ms={bnd:.5f} ({by})")
+            f"library_ms={lib:.4f} bound_ms={bnd:.5f} ({by}); {plan_line('K1', b, sq, sk, h, d)}")
         if not err <= tol:
             raise AssertionError(f"K1 at {row['shape']}: error {err} over tolerance {tol}")
         rows.append(row)
@@ -194,14 +231,15 @@ def check_flash(gen):
 
 
 def check_flash_bwd(gen):
-    """K3 against its twin at the 8 UNet shapes (the VAE's D=512 never trains),
-    with K1's lse against the fp32 log-sum-exp on the way."""
+    """K3 against its twin at the 8 UNet shapes (the VAE's D=512 never trains)
+    and at B=2 for the two Sq=4096 ones, with K1's lse against the fp32
+    log-sum-exp on the way."""
     rows = []
-    for sq, sk, h, d, per_pass in FLASH_SHAPES:
+    for b, sq, sk, h, d, per_pass in FLASH_CASES:
         if d > 160:
             continue
-        q, k, v = (torch.randn(1, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
-        g = torch.randn(1, sq, h, d, device="cuda", generator=gen).bfloat16()
+        q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
+        g = torch.randn(b, sq, h, d, device="cuda", generator=gen).bfloat16()
         scale = d ** -0.5
         o, lse = flash_attention_forward(q, k, v, scale)
         lse_ref = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, -1)
@@ -215,25 +253,60 @@ def check_flash_bwd(gen):
         # Sq or Sk terms; 2^-6 of each gradient's largest entry bounds it
         errs = [(x.float() - r).abs().max().item() for x, r in zip(grads, refs)]
         tols = [2.0 ** -6 * r.abs().max().item() for r in refs]
+        del refs
         ms = cuda_ms(lambda: flash_attention_backward(q, k, v, o, g, lse, scale))
         plain = cuda_ms(lambda: attention_backward_reference(q, k, v, g, scale))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt)
         gt = g.transpose(1, 2)
         lib = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True))
+        del out
         nbytes = 2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-        bnd, by = bound_ms(nbytes, 10 * h * sq * sk * d)
-        row = dict(shape=[1, sq, sk, h, d], per_step=2 * per_pass, max_abs_err=max(errs),
+        bnd, by = bound_ms(nbytes, 10 * b * h * sq * sk * d)
+        row = dict(shape=[b, sq, sk, h, d], per_step=2 * per_pass, max_abs_err=max(errs),
                    errs=errs, tols=tols, lse_err=lse_err, ms=ms, plain_ms=plain, library_ms=lib,
                    bound_ms=bnd, bound_by=by)
-        log(f"K3 flash_attention_backward [B,Sq,Sk,H,D]=[1,{sq},{sk},{h},{d}] x{2 * per_pass}/step: "
+        log(f"K3 flash_attention_backward [B,Sq,Sk,H,D]=[{b},{sq},{sk},{h},{d}] x{2 * per_pass}/step: "
             + " ".join(f"{n}_err={e:.3e} (tol {t:.3e})" for n, e, t in zip(("dq", "dk", "dv"), errs, tols))
             + f" K1 lse_err={lse_err:.3e} (tol {lse_tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} bound_ms={bnd:.5f} ({by})")
+            f"library_ms={lib:.4f} bound_ms={bnd:.5f} ({by}); {plan_line('K3', b, sq, sk, h, d)}")
         if not (all(e <= t for e, t in zip(errs, tols)) and lse_err <= lse_tol):
             raise AssertionError(f"K3 at {row['shape']}: errors {errs} over {tols} or lse {lse_err}")
         rows.append(row)
     return rows
+
+
+def report_builds(q):
+    """What ptxas made of K1's and K3's bf16 kernels (registers, shared
+    memory, spills), the SASS they hold (HGMMA = wgmma, UTMALDG = TMA tensor
+    loads, HMMA = mma.sync), and the host cost of encoding a tensor map."""
+    for name in ("flash_attention", "flash_attention_bwd"):
+        for fn, regs, smem, st, ld in kernels.ptxas_report(name):
+            if any(x in fn for x in ("tma", "bwd_prep", "reduce")):
+                log(f"ptxas {name}: {fn}: {regs} registers, {smem} bytes static smem, "
+                    f"spill stores {st} B, spill loads {ld} B")
+        try:
+            counts = kernels.sass_counts(name, ("HGMMA", "UTMALDG", "HMMA"))
+            log(f"SASS of lib{name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+        except (FileNotFoundError, subprocess.CalledProcessError) as e:
+            log(f"SASS of lib{name}: not counted ({e})")
+        if name == "flash_attention" and not kernels.ptxas_report(name):
+            log("ptxas flash_attention: no report (library built by an earlier process)")
+    fn = kernels.load("flash_attention").madm_tensor_map_encode_ns
+    fn.restype = ctypes.c_double
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
+    ns, ns_hit = (fn(q.data_ptr(), q.shape[1], q.shape[2], q.shape[3], 2000, c) for c in (0, 1))
+    small = [torch.randn(1, 64, 8, 40, device="cuda").bfloat16() for _ in range(3)]
+    flash_attention(*small)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        flash_attention(*small)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    log(f"K1 host cost: {ns:.0f} ns to encode one tensor map, {ns_hit:.0f} ns to find it in the table "
+        f"of encoded maps (3 a call); {host_us:.1f} us of host "
+        f"time a flash_attention call at [1,64,64,8,40] (enqueue, no sync)")
 
 
 def check_packed(gen):
@@ -1001,8 +1074,12 @@ def main() -> int:
         f"(sm_90a, {kernels.BUILD_DIR})")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    report_builds(torch.randn(1, 4096, 8, 40, device="cuda", generator=gen).bfloat16())
     flash_rows = check_flash(gen)
     bwd_rows = check_flash_bwd(gen)
+    log(f"K1 at B=1: {sum(r['ms'] * r['per_pass'] for r in flash_rows if r['shape'][0] == 1):.4f} ms a "
+        f"pass over its 34 calls; K3 at B=1: "
+        f"{sum(r['ms'] * r['per_step'] for r in bwd_rows if r['shape'][0] == 1):.4f} ms a step over its 64 calls")
     packed_rows = check_packed(gen)
     aspp_rows = check_aspp(gen)
     dw_rows = check_dw(gen)
@@ -1035,12 +1112,12 @@ def main() -> int:
     phase_done("9 (the CLI)")
 
     def per_pass(key):
-        return sum(r[key] * r["per_pass"] for r in flash_rows)
+        return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)
 
     k1_b, k1_f = (sum(2 * (2 * sq * h * d + 2 * sk * h * d) * n for sq, sk, h, d, n in FLASH_SHAPES),
                   sum(4 * h * sq * sk * d * n for sq, sk, h, d, n in FLASH_SHAPES))
     def per_step(key):
-        return sum(r[key] * r["per_step"] for r in bwd_rows)
+        return sum(r[key] * r["per_step"] for r in bwd_rows if r["shape"][0] == 1)
 
     def dw_pass(key):
         return sum(r[key] for r in dw_rows)

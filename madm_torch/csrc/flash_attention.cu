@@ -8,49 +8,62 @@
 //
 // Bound on the H100: at the UNet shapes (S=4096, D=40..160; Sk=77 cross) the
 // work is 4*Sq*Sk*D operations per head against ~(2*Sq + 2*Sk)*D elements
-// moved, i.e. far above the card's ~295 ops/byte ridge: it is bound by
-// operations.  The TPU kernel kept the whole K/V of a head resident in its
-// 128 MB of VMEM; a Hopper block has at most 227 KB of shared memory, so this
-// kernel streams K/V through shared memory in tiles of BK keys with an
-// online softmax (running max and sum in fp32, base-2 exponent with
-// scale*log2(e) folded into q, as the TPU kernel did) and divides by the sum
-// once, after the last PV product.  The S x S scores never reach device
-// memory.  Keys past kv_len (the ragged last tile, e.g. Sk=77) are masked to
-// -inf; D is padded to the tile width in shared memory only.
+// moved, far above the card's ~295 ops/byte ridge: it is bound by
+// operations, which only wgmma delivers at the card's rate.  The TPU kernel
+// kept a head's whole K/V in VMEM; a Hopper block has 227 KB of shared
+// memory, so K/V stream through it in tiles with an online softmax (running
+// max and sum in fp32, base-2 exponent with scale*log2(e) folded into q, as
+// the TPU kernel did), divided by the sum once, after the last PV product.
+// The S x S scores never reach device memory.
 //
-// Two bodies, chosen from the dtype and D:
-// - bf16 with D % 8 == 0 and 16-byte aligned rows (every attention of the
-//   model): tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-//   accumulate), FlashAttention-2 style.
-//   A block is 4 warps x 16 query rows; each warp keeps its scores, its
-//   online-softmax state and its [16, D] output accumulator in registers
-//   (the m16n8 accumulator layout gives each thread rows g and g+8, so the
-//   rescale by exp2(m_old - m_new) needs no shared memory), and feeds P to
-//   the PV product straight from the score registers as bf16.  q is scaled
-//   and rounded to bf16 as the TPU kernel did; K is staged row-major and V
-//   transposed in shared memory so every fragment is one 32-bit load.  Tiles
-//   arrive by 16-byte loads, and the next K/V tile is fetched into registers
-//   while the current one computes.
-//   The D=512 single-head VAE attention splits its output columns over 4
-//   blocks of 128 (each recomputes the scores) to keep the accumulator in
-//   registers.
-// Both bodies optionally write the fp32 row log-sum-exp (natural log, of the
-// scaled scores) to lse [B, H, Sq]: the backward kernel K3
-// (flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.  Eval passes
-// hand a null pointer and skip the write.
-// - float32 (the parity path) and any other bf16 input: SIMT fp32 FMA on a
-//   16x16 thread grid, register tiles of RI query rows x CJ keys and RI rows
-//   x DJ head columns;
+// Two bodies, chosen from the dtype:
+// - bf16 (every attention of the model): warp-specialised TMA + wgmma.  A
+//   producer warp (one issuing thread) loads the block's Q once and then K
+//   and V tiles by TMA into a ring of shared-memory stages, each with a full
+//   and an empty mbarrier.  Consumer warpgroups own 64 query rows each (two
+//   a block where 128-row tiles still give 132 blocks, else one, so that
+//   more blocks run):
+//   - q is rescaled in shared memory to bf16(q * scale * log2(e)), the TPU
+//     kernel's rounding point, and its columns past D zeroed;
+//   - S = Qs K^T by wgmma m64nBKk16 with both operands K-major in shared
+//     memory, as TMA wrote them;
+//   - the online softmax runs in the accumulator registers, P is packed to
+//     bf16 in registers and is the register A operand of O += P V, with V
+//     read MN-major where TMA put it: no transposes, no shared-memory P;
+//   - the output is normalised after PV, as on the TPU, and stored from the
+//     registers; the fp32 row log-sum-exp (natural log of the scaled scores)
+//     goes to lse [B, H, Sq] when asked: K3 (flash_attention_bwd.cu)
+//     recomputes P = exp(s - lse) from it.
+//   Tiles are [rows][64] boxes with the 128-byte swizzle.  D=40 rows are 80
+//   bytes, which no swizzle span fits, so D is boxed as 64 columns and the
+//   products run over D padded to 48 (3 k-steps); the columns past D are
+//   TMA's zeros or, where the heads lie side by side (every call site: the
+//   80-byte head stride is not a legal TMA stride, so the map sees a row as
+//   one H*D vector), the next head's values, which the zeroed q columns
+//   cancel in QK^T and which land in output columns that are not stored.
+//   This costs 64/40 of the minimal bytes (from L2: the neighbouring head's
+//   block reads them too) and 48/40 of the products, against a second,
+//   unswizzled layout for one head dim.  Keys past Sk (TMA zero-fills rows
+//   past the end) are masked to -inf; a 77-key cross-attention is one
+//   80-key tile.  The VAE's single-head D=512 attention computes its scores
+//   once: two warpgroups share 64 query rows, each takes half of the QK^T
+//   reduction and half of the output columns, and they add their fp32
+//   partial scores through shared memory in warpgroup order, so both form
+//   the same P (K and V rings of one stage: 64 KB a tile).
+// - float32 (the parity path): SIMT fp32 FMA on a 16x16 thread grid,
+//   register tiles of RI query rows x CJ keys and RI rows x DJ head columns;
 //   D=512 uses 32-row query tiles so its fp32 output accumulator stays in
-//   registers (32 x 512 over 256 threads).  This body does not use the tensor
-//   cores.
+//   registers (32 x 512 over 256 threads).  This body does not use the
+//   tensor cores.  It writes lse as the bf16 body does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <chrono>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -61,24 +74,15 @@ struct Strides {
   long long b, s, h;  // element strides of batch, sequence and head; head dim is unit-stride
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int DPAD, int BQ, int BK>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (BQ * (DPAD + 1) + BK * (DPAD + 1) + BK * DPAD + BQ * (BK + 1));
 }
 
-template <typename T, int DPAD, int BQ, int BK>
+template <int DPAD, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int nh, int sq, int sk, int d,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, float* __restrict__ lse, int nh, int sq, int sk, int d,
                  Strides qs, Strides ks, Strides vs, Strides os, float qscale) {
   constexpr int RI = BQ / 16;    // query rows per thread
   constexpr int CJ = BK / 16;    // keys per thread (score tile)
@@ -101,14 +105,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
 
   for (int e = tid; e < BQ * DPAD; e += kThreads) {
     const int r = e / DPAD, c = e - r * DPAD;
     float x = 0.f;
-    if (q0 + r < sq && c < d) x = to_float(qb[(long long)(q0 + r) * qs.s + c]) * qscale;
+    if (q0 + r < sq && c < d) x = qb[(long long)(q0 + r) * qs.s + c] * qscale;
     Qs[r * QLD + c] = x;
   }
 
@@ -128,8 +132,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = e / DPAD, c = e - r * DPAD;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < sk && c < d) {
-        kx = to_float(kb[(long long)(k0 + r) * ks.s + c]);
-        vx = to_float(vb[(long long)(k0 + r) * vs.s + c]);
+        kx = kb[(long long)(k0 + r) * ks.s + c];
+        vx = vb[(long long)(k0 + r) * vs.s + c];
       }
       Ks[r * KLD + c] = kx;
       Vs[r * VLD + c] = vx;
@@ -201,7 +205,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 
   // normalise after PV (as the TPU kernel does) and store
-  T* ob = o + b * os.b + h * os.h;
+  float* ob = o + b * os.b + h * os.h;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -210,293 +214,353 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) ob[(long long)r * os.s + c] = from_float<T>(acc[i][j] * inv);
+      if (c < d) ob[(long long)r * os.s + c] = acc[i][j] * inv;
     }
     if (lse != nullptr && tx == 0)
       lse[((long long)b * nh + h) * sq + r] = (m_run[i] + log2f(l_run[i])) * kLn2;
   }
 }
 
-// ------------------------------------------------- bf16 tensor-core body
-constexpr int kMmaWarps = 4;  // 16 query rows each
-constexpr int kMmaBQ = 16 * kMmaWarps;
+// ------------------------------------------------- bf16 body: TMA + wgmma
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+struct FwdArgs {
+  int sq, sk, d, rank4;  // rank4: bit 0 q, bit 1 k, bit 2 v use a rank-4 map (else flat heads)
+  long long o_sb, o_ss, o_sh;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo -> low half (lower column)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// DN: D padded to 16 (the QK^T reduction and the PV width); BK keys a tile;
+// NWG consumer warpgroups; SPLITD: the warpgroups share 64 query rows and
+// split D (the QK^T reduction and the output columns), else each owns 64
+// rows.  Shared memory: Q, the K and V rings, the partial scores (SPLITD),
+// the barriers, and 1024 bytes to align the base.
+template <int DN, int BK, int NWG, bool SPLITD, int STAGES>
+struct FwdTile {
+  static constexpr int NCH = (DN + 63) / 64;  // 64-column chunks of a row
+  static constexpr int BQ = SPLITD ? 64 : 64 * NWG;
+  static constexpr int Q_BYTES = NCH * BQ * 128;
+  static constexpr int KV_BYTES = NCH * BK * 128;
+  static constexpr int PART_BYTES = SPLITD ? NWG * 64 * BK * 4 : 0;
+  static constexpr int BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES + PART_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 4 * STAGES);
+  static constexpr int THREADS = 128 * NWG + 32;  // consumer warpgroups, one producer warp
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+template <int DN, int BK, int NWG, bool SPLITD, int STAGES>
+__global__ void __launch_bounds__(FwdTile<DN, BK, NWG, SPLITD, STAGES>::THREADS, 1)
+flash_fwd_tma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                     float* __restrict__ lse, FwdArgs a, float qscale) {
+  using L = FwdTile<DN, BK, NWG, SPLITD, STAGES>;
+  constexpr int NCH = L::NCH, BQ = L::BQ;
+  constexpr int KS = DN / 16;                      // k-steps of QK^T
+  constexpr int KS_W = SPLITD ? KS / NWG : KS;     // this warpgroup's
+  constexpr int NO = SPLITD ? DN / NWG : DN;       // output columns of a warpgroup
+  static_assert(DN % 16 == 0 && BK % 16 == 0, "tile shape");
+  static_assert(!SPLITD || (KS % NWG == 0 && NO % 64 == 0), "D split");
 
-template <int DP, int BK, int DO>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kMmaBQ * (DP + 8) + BK * (DP + 8) + DO * (BK + 8));
-}
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + L::Q_BYTES;                  // [STAGES]
+  unsigned char* sV = sK + STAGES * L::KV_BYTES;        // [STAGES]
+  float* sPart = reinterpret_cast<float*>(sV + STAGES * L::KV_BYTES);
+  uint64_t* barQ = reinterpret_cast<uint64_t*>(sQ + L::BAR_OFF);
+  uint64_t* fullK = barQ + 1;
+  uint64_t* fullV = fullK + STAGES;
+  uint64_t* emptyK = fullV + STAGES;
+  uint64_t* emptyV = emptyK + STAGES;
 
-// DO < DP splits the output columns over DP / DO blocks, each of which
-// recomputes the scores; it keeps the D=512 accumulator at 16 x 128 per warp.
-template <int DP, int BK, int DO>
-__global__ void __launch_bounds__(32 * kMmaWarps)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int nh, int sq, int sk, int d, Strides qs,
-                     Strides ks, Strides vs, Strides os, float qscale) {
-  constexpr int LQ = DP + 8, LK = DP + 8, LV = BK + 8;  // 32-bit fragment loads conflict-free
-  constexpr int NT = BK / 8;   // score n-tiles per warp
-  constexpr int DT = DO / 8;   // output n-tiles per warp
-  constexpr int NCH = DP / DO;  // output column chunks, one per block
-  static_assert(DP % 16 == 0 && BK % 16 == 0 && DP % DO == 0 && DO % 8 == 0, "tile shape");
-  constexpr int kT = 32 * kMmaWarps;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LQ], scaled q
-  __nv_bfloat16* Ks = Qs + kMmaBQ * LQ;                             // [BK][LK]
-  __nv_bfloat16* Vt = Ks + BK * LK;                                 // [DO][LV], V^T of the chunk
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;  // mma fragment group / thread-in-group
-  const int q0 = blockIdx.x * kMmaBQ, h = blockIdx.y / NCH, b = blockIdx.z;
-  const int dc = (blockIdx.y - h * NCH) * DO;  // first output column of this block
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h;
-
-  // 16-byte loads: the caller guarantees d % 8 == 0 and 16-byte aligned rows
-  constexpr int KV8 = DP / 8, VV8 = DO / 8;               // 8-column vectors per row
-  constexpr int NKR = (BK * KV8 + kT - 1) / kT;           // K vectors per thread and tile
-  constexpr int NVR = (BK * VV8 + kT - 1) / kT;           // V vectors per thread and tile
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-  for (int e = tid; e < kMmaBQ * KV8; e += kT) {
-    const int r = e / KV8, c8 = (e - r * KV8) * 8;
-    uint4 raw = zero4;
-    if (q0 + r < sq && c8 < d) raw = *reinterpret_cast<const uint4*>(qb + (long long)(q0 + r) * qs.s + c8);
-    const __nv_bfloat16* x8 = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    __align__(16) __nv_bfloat16 y8[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) y8[i] = __float2bfloat16(__bfloat162float(x8[i]) * qscale);
-    *reinterpret_cast<uint4*>(Qs + r * LQ + c8) = *reinterpret_cast<const uint4*>(y8);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int q0 = blockIdx.x * BQ, hh = blockIdx.y, b = blockIdx.z;
+  const int ntiles = (a.sk + BK - 1) / BK;
+  if (tid == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(fullK + s, 1);
+      mbar_init(fullV + s, 1);
+      mbar_init(emptyK + s, NWG);
+      mbar_init(emptyV + s, NWG);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  // the next K/V tile is fetched into registers while the current one computes
-  uint4 kreg[NKR], vreg[NVR];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < NKR; ++i) {
-      const int e = tid + i * kT, r = e / KV8, c8 = (e - r * KV8) * 8;
-      kreg[i] = (e < BK * KV8 && k0 + r < sk && c8 < d)
-                    ? *reinterpret_cast<const uint4*>(kb + (long long)(k0 + r) * ks.s + c8)
-                    : zero4;
-    }
-#pragma unroll
-    for (int i = 0; i < NVR; ++i) {
-      const int e = tid + i * kT, r = e / VV8, c8 = (e - r * VV8) * 8;
-      vreg[i] = (e < BK * VV8 && k0 + r < sk && dc + c8 < d)
-                    ? *reinterpret_cast<const uint4*>(vb + (long long)(k0 + r) * vs.s + dc + c8)
-                    : zero4;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < NKR; ++i) {
-      const int e = tid + i * kT, r = e / KV8, c8 = (e - r * KV8) * 8;
-      if (e < BK * KV8) *reinterpret_cast<uint4*>(Ks + r * LK + c8) = kreg[i];
-    }
-#pragma unroll
-    for (int i = 0; i < NVR; ++i) {
-      const int e = tid + i * kT, r = e / VV8, c8 = (e - r * VV8) * 8;
-      if (e < BK * VV8) {
-        const __nv_bfloat16* x8 = reinterpret_cast<const __nv_bfloat16*>(&vreg[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) Vt[(c8 + j) * LV + r] = x8[j];
+  if (wg == NWG) {  // the producer warp: one thread issues every load
+    if (tid == NWG * 128) {
+      const bool r4q = a.rank4 & 1, r4k = a.rank4 & 2, r4v = a.rank4 & 4;
+      const int cq = r4q ? 0 : hh * a.d, ck = r4k ? 0 : hh * a.d, cv = r4v ? 0 : hh * a.d;
+      mbar_expect_tx(barQ, L::Q_BYTES);
+      for (int c = 0; c < NCH; ++c) tma_load(sQ + c * BQ * 128, &tq, barQ, cq + 64 * c, q0, hh, b, r4q);
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES, ph = (j / STAGES) & 1;
+        mbar_wait(emptyK + s, ph ^ 1);
+        mbar_expect_tx(fullK + s, L::KV_BYTES);
+        for (int c = 0; c < NCH; ++c)
+          tma_load(sK + s * L::KV_BYTES + c * BK * 128, &tk, fullK + s, ck + 64 * c, j * BK, hh, b, r4k);
+        mbar_wait(emptyV + s, ph ^ 1);
+        mbar_expect_tx(fullV + s, L::KV_BYTES);
+        for (int c = 0; c < NCH; ++c)
+          tma_load(sV + s * L::KV_BYTES + c * BK * 128, &tv, fullV + s, cv + 64 * c, j * BK, hh, b, r4v);
       }
     }
-  };
-  fetch(0);
+  } else {  // consumers
+    const int t = tid % 128, warp = t / 32, lane = t % 32, g = lane / 4, tg = lane % 4;
+    mbar_wait(barQ, 0);
+    // q * scale * log2(e) rounded to bf16 in place (the TPU kernel's rounding
+    // point); columns past D zeroed, so that what a flat map brought of the
+    // next head adds nothing to the scores
+    for (int e = tid; e < NCH * BQ * 8; e += NWG * 128) {
+      const int c = e / (BQ * 8), r = (e / 8) % BQ;
+      const int col = c * 64 + (((e % 8) ^ (r & 7)) * 8);
+      uint4* p = reinterpret_cast<uint4*>(sQ + e * 16);
+      uint4 raw = *p;
+      bf16* x = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        x[i] = col < a.d ? __float2bfloat16(__bfloat162float(x[i]) * qscale) : __float2bfloat16(0.f);
+      *p = raw;
+    }
+    fence_async_smem();
+    named_sync(1, NWG * 128);
 
-  float acc[DT][4];
+    float oacc[NO / 2];
 #pragma unroll
-  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // rows g and g+8 of this warp
-  float l0 = 0.f, l1 = 0.f;                       // this thread's share of the row sums
-  const __nv_bfloat16* qrow0 = Qs + (16 * warp + g) * LQ + 2 * tg;
-  const __nv_bfloat16* qrow1 = qrow0 + 8 * LQ;
+    for (int i = 0; i < NO / 2; ++i) oacc[i] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // rows g and g+8 of this warp
+    float l0 = 0.f, l1 = 0.f;                       // this thread's share of the row sums
+    const uint32_t qa = smem_addr(sQ) + (SPLITD ? 0 : wg * 64 * 128);
+    const int ks0 = SPLITD ? wg * KS_W : 0;
+    const int oc0 = SPLITD ? wg * NO : 0;  // first output column of this warpgroup
 
-  for (int k0 = 0; k0 < sk; k0 += BK) {
-    __syncthreads();  // Qs written (first tile); Ks/Vt free (later tiles)
-    stash();
-    __syncthreads();
-    if (k0 + BK < sk) fetch(k0 + BK);
-
-    float s[NT][4];
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES, ph = (j / STAGES) & 1;
+      // S = Qs K^T, log2 domain
+      float sacc[BK / 2];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+      mbar_wait(fullK + s, ph);
+      const uint32_t ka = smem_addr(sK + s * L::KV_BYTES);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const uint32_t a0 = ld32(qrow0 + kk), a1 = ld32(qrow1 + kk);
-      const uint32_t a2 = ld32(qrow0 + kk + 8), a3 = ld32(qrow1 + kk + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* kp = Ks + (8 * j + g) * LK + kk + 2 * tg;
-        mma_bf16_16816(s[j], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
+      for (int i = 0; i < KS_W; ++i) {
+        const int k = ks0 + i;
+        wgmma_ss<BK>(sacc, desc(qa + (k / 4) * BQ * 128 + (k % 4) * 32, 16),
+                     desc(ka + (k / 4) * BK * 128 + (k % 4) * 32, 16), i > 0);
       }
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sacc);
+      if (t == 0) mbar_arrive(emptyK + s);
+      if constexpr (SPLITD) {  // sum the partial scores, in warpgroup order on every warpgroup
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sPart[(wg * (BK / 2) + i) * 128 + t] = sacc[i];
+        named_sync(2, NWG * 128);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          float tot = 0.f;
+#pragma unroll
+          for (int w = 0; w < NWG; ++w) tot += sPart[(w * (BK / 2) + i) * 128 + t];
+          sacc[i] = tot;
+        }
+        named_sync(2, NWG * 128);
+      }
+      if ((j + 1) * BK > a.sk) {  // keys past Sk (TMA's zero rows) are masked, not zero
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          const int key = j * BK + 8 * n + 2 * tg;
+          if (key >= a.sk) sacc[4 * n] = sacc[4 * n + 2] = -CUDART_INF_F;
+          if (key + 1 >= a.sk) sacc[4 * n + 1] = sacc[4 * n + 3] = -CUDART_INF_F;
+        }
+      }
+      // online softmax; a row's columns are spread over the 4 threads of a group
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(sacc[4 * n], sacc[4 * n + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sacc[4 * n + 2], sacc[4 * n + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);  // finite: a tile has a live key
+      const float al0 = exp2f(m0 - n0), al1 = exp2f(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        sacc[4 * n] = exp2f(sacc[4 * n] - n0);
+        sacc[4 * n + 1] = exp2f(sacc[4 * n + 1] - n0);
+        sacc[4 * n + 2] = exp2f(sacc[4 * n + 2] - n1);
+        sacc[4 * n + 3] = exp2f(sacc[4 * n + 3] - n1);
+        ps0 += sacc[4 * n] + sacc[4 * n + 1];
+        ps1 += sacc[4 * n + 2] + sacc[4 * n + 3];
+      }
+      l0 = l0 * al0 + ps0;
+      l1 = l1 * al1 + ps1;
+#pragma unroll
+      for (int n = 0; n < NO / 8; ++n) {
+        oacc[4 * n] *= al0;
+        oacc[4 * n + 1] *= al0;
+        oacc[4 * n + 2] *= al1;
+        oacc[4 * n + 3] *= al1;
+      }
+      // P in bf16 as the register A operand: two 8-key groups a k-step
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+      // O += P V, V read MN-major where TMA put it
+      mbar_wait(fullV + s, ph);
+      const uint32_t va = smem_addr(sV + s * L::KV_BYTES) + (oc0 / 64) * BK * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<NO>(oacc, pa[kk], desc(va + kk * 2048, BK * 128), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(oacc);
+      fence_regs(pa);
+      if (t == 0) mbar_arrive(emptyV + s);
     }
 
-    // online softmax; a row's 8-key tiles are spread over the 4 threads of a group
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int key = k0 + 8 * j + 2 * tg;
-      if (key >= sk) s[j][0] = s[j][2] = -CUDART_INF_F;
-      if (key + 1 >= sk) s[j][1] = s[j][3] = -CUDART_INF_F;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
+    // row sums across the group, normalise after PV, store
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);  // finite: a tile has a live key
-    const float al0 = exp2f(m0 - n0), al1 = exp2f(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = exp2f(s[j][0] - n0);
-      s[j][1] = exp2f(s[j][1] - n0);
-      s[j][2] = exp2f(s[j][2] - n1);
-      s[j][3] = exp2f(s[j][3] - n1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
+    const float i0 = 1.f / l0, i1 = 1.f / l1;
+    const int r0 = q0 + (SPLITD ? 0 : 64 * wg) + 16 * warp + g, r1 = r0 + 8;
+    if (lse != nullptr && oc0 == 0 && tg == 0) {
+      float* lb = lse + ((long long)b * gridDim.y + hh) * a.sq;
+      if (r0 < a.sq) lb[r0] = (m0 + log2f(l0)) * kLn2;
+      if (r1 < a.sq) lb[r1] = (m1 + log2f(l1)) * kLn2;
     }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
+    bf16* ob = o + b * a.o_sb + hh * a.o_sh;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= al0;
-      acc[j][1] *= al0;
-      acc[j][2] *= al1;
-      acc[j][3] *= al1;
-    }
-
-    // acc += P V: two adjacent score tiles form one A fragment
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const __nv_bfloat16* vp = Vt + (8 * j + g) * LV + 16 * kk + 2 * tg;
-        mma_bf16_16816(acc[j], a0, a1, a2, a3, ld32(vp), ld32(vp + 8));
-      }
-    }
-  }
-
-  // row sums across the group, normalise after PV, store
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
-  if (lse != nullptr && dc == 0 && tg == 0) {  // the row sums are whole on every thread now
-    float* lb = lse + ((long long)b * nh + h) * sq;
-    if (r0 < sq) lb[r0] = (m0 + log2f(l0)) * kLn2;
-    if (r1 < sq) lb[r1] = (m1 + log2f(l1)) * kLn2;
-  }
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    const int c = dc + 8 * j + 2 * tg;
-    if (r0 < sq) {
-      if (c < d) ob[(long long)r0 * os.s + c] = __float2bfloat16(acc[j][0] * i0);
-      if (c + 1 < d) ob[(long long)r0 * os.s + c + 1] = __float2bfloat16(acc[j][1] * i0);
-    }
-    if (r1 < sq) {
-      if (c < d) ob[(long long)r1 * os.s + c] = __float2bfloat16(acc[j][2] * i1);
-      if (c + 1 < d) ob[(long long)r1 * os.s + c + 1] = __float2bfloat16(acc[j][3] * i1);
+    for (int n = 0; n < NO / 8; ++n) {
+      const int c = oc0 + 8 * n + 2 * tg;  // D % 8 == 0: c < D implies c + 1 < D
+      if (c >= a.d) continue;
+      if (r0 < a.sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r0 * a.o_ss + c) =
+            __floats2bfloat162_rn(oacc[4 * n] * i0, oacc[4 * n + 1] * i0);
+      if (r1 < a.sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + r1 * a.o_ss + c) =
+            __floats2bfloat162_rn(oacc[4 * n + 2] * i1, oacc[4 * n + 3] * i1);
     }
   }
 }
 
-template <int DP, int BK, int DO>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                       int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
+// The TMA body's variant for a shape; attention_plan() in
+// madm_torch/ops/flash_attention.py makes the same choice.
+struct FwdPlan {
+  int dn, bk, nwg, splitd, stages, bq, smem;
+};
+
+// two consumer warpgroups (128 query rows) a block where that still gives
+// 132 blocks, the H100's SMs; else one, so that more blocks run
+inline bool fills(int b, int sq, int h) { return (long long)(sq + 127) / 128 * h * b >= 132; }
+
+inline FwdPlan fwd_plan(int b, int sq, int sk, int h, int d) {
+  FwdPlan p{};
+  p.dn = d <= 48 ? 48 : d <= 80 ? 80 : d <= 160 ? 160 : 512;
+  p.splitd = p.dn == 512;
+  p.bk = p.splitd ? 64 : sk <= 80 ? 80 : p.dn == 160 ? 64 : 128;
+  p.nwg = p.splitd || fills(b, sq, h) ? 2 : 1;
+  p.stages = p.splitd ? 1 : 2;
+  p.bq = p.splitd ? 64 : 64 * p.nwg;
+  return p;
+}
+
+template <int DN, int BK, int NWG, bool SPLITD, int STAGES>
+cudaError_t launch_tma(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
+                       int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
                        float qscale, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<DP, BK, DO>();
-  auto kern = flash_fwd_mma_kernel<DP, BK, DO>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = FwdTile<DN, BK, NWG, SPLITD, STAGES>;
+  CUtensorMap mq, mk, mv;
+  if (!cached_bf16_map(&mq, q, b, sq, h, d, qs.b, qs.s, qs.h, L::BQ) ||
+      !cached_bf16_map(&mk, k, b, sk, h, d, ks.b, ks.s, ks.h, BK) ||
+      !cached_bf16_map(&mv, v, b, sk, h, d, vs.b, vs.s, vs.h, BK))
+    return cudaErrorInvalidValue;
+  constexpr auto kern = flash_fwd_tma_kernel<DN, BK, NWG, SPLITD, STAGES>;
+  cudaError_t err = set_smem_once<kern>(L::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((sq + kMmaBQ - 1) / kMmaBQ, h * (DP / DO), b);
-  kern<<<grid, 32 * kMmaWarps, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, h, sq, sk, d,
-      qs, ks, vs, os, qscale);
+  const FwdArgs a{sq, sk, d,
+                  (flat_heads(h, d, qs.h) ? 0 : 1) | (flat_heads(h, d, ks.h) ? 0 : 2) |
+                      (flat_heads(h, d, vs.h) ? 0 : 4),
+                  os.b, os.s, os.h};
+  dim3 grid((sq + L::BQ - 1) / L::BQ, h, b);
+  kern<<<grid, L::THREADS, L::SMEM, stream>>>(mq, mk, mv, static_cast<bf16*>(o), lse, a, qscale);
   return cudaGetLastError();
 }
 
-template <typename T, int DPAD, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                   int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os, float qscale,
-                   cudaStream_t stream) {
+template <int DN, int BK>
+cudaError_t launch_tma_rows(int nwg, const void* q, const void* k, const void* v, void* o, float* lse,
+                            int b, int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs,
+                            Strides os, float qscale, cudaStream_t st) {
+  if (nwg == 1) return launch_tma<DN, BK, 1, false, 2>(q, k, v, o, lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
+  return launch_tma<DN, BK, 2, false, 2>(q, k, v, o, lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
+}
+
+template <int DN, int BK, int NWG, bool SPLITD, int STAGES>
+int tma_smem() { return FwdTile<DN, BK, NWG, SPLITD, STAGES>::SMEM; }
+
+cudaError_t dispatch_tma(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                         int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
+                         float qscale, cudaStream_t st) {
+#define ARGS p.nwg, q, k, v, o, lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st
+  const FwdPlan p = fwd_plan(b, sq, sk, h, d);
+  if (p.splitd)
+    return launch_tma<512, 64, 2, true, 1>(q, k, v, o, lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
+  if (p.dn == 48) return p.bk == 80 ? launch_tma_rows<48, 80>(ARGS) : launch_tma_rows<48, 128>(ARGS);
+  if (p.dn == 80) return p.bk == 80 ? launch_tma_rows<80, 80>(ARGS) : launch_tma_rows<80, 128>(ARGS);
+  return p.bk == 80 ? launch_tma_rows<160, 80>(ARGS) : launch_tma_rows<160, 64>(ARGS);
+#undef ARGS
+}
+
+int plan_smem(const FwdPlan& p) {
+  if (p.splitd) return tma_smem<512, 64, 2, true, 1>();
+#define S(DN, BK) (p.nwg == 1 ? tma_smem<DN, BK, 1, false, 2>() : tma_smem<DN, BK, 2, false, 2>())
+  if (p.dn == 48) return p.bk == 80 ? S(48, 80) : S(48, 128);
+  if (p.dn == 80) return p.bk == 80 ? S(80, 80) : S(80, 128);
+  return p.bk == 80 ? S(160, 80) : S(160, 64);
+#undef S
+}
+
+template <int DPAD, int BQ, int BK>
+cudaError_t launch_simt(const float* q, const float* k, const float* v, float* o, float* lse, int b,
+                        int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
+                        float qscale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DPAD, BQ, BK>();
-  auto kern = flash_fwd_kernel<T, DPAD, BQ, BK>;
+  auto kern = flash_fwd_kernel<DPAD, BQ, BK>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), static_cast<T*>(o), lse, h,
-                                         sq, sk, d, qs, ks, vs, os, qscale);
+  kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, h, sq, sk, d, qs, ks, vs, os, qscale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-                     int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os, float qscale,
-                     bool vec16, cudaStream_t st) {
-#define ARGS q, k, v, o, lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    if (vec16) {  // tensor-core body
-      if (d <= 48) return launch_mma<48, 64, 48>(ARGS);
-      if (d <= 64) return launch_mma<64, 64, 64>(ARGS);
-      if (d <= 80) return launch_mma<80, 64, 80>(ARGS);
-      if (d <= 128) return launch_mma<128, 32, 128>(ARGS);
-      if (d <= 160) return launch_mma<160, 32, 160>(ARGS);
-      if (d <= 512) return launch_mma<512, 32, 128>(ARGS);
-    }
-  }
-  if (d <= 48) return launch<T, 48, 64, 64>(ARGS);
-  if (d <= 64) return launch<T, 64, 64, 64>(ARGS);
-  if (d <= 80) return launch<T, 80, 64, 64>(ARGS);
-  if (d <= 128) return launch<T, 128, 64, 32>(ARGS);
-  if (d <= 160) return launch<T, 160, 64, 32>(ARGS);
-  if (d <= 512) return launch<T, 512, 32, 32>(ARGS);
+cudaError_t dispatch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                          int sq, int sk, int h, int d, Strides qs, Strides ks, Strides vs, Strides os,
+                          float qscale, cudaStream_t st) {
+#define ARGS static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), \
+             static_cast<float*>(o), lse, b, sq, sk, h, d, qs, ks, vs, os, qscale, st
+  if (d <= 48) return launch_simt<48, 64, 64>(ARGS);
+  if (d <= 64) return launch_simt<64, 64, 64>(ARGS);
+  if (d <= 80) return launch_simt<80, 64, 64>(ARGS);
+  if (d <= 128) return launch_simt<128, 64, 32>(ARGS);
+  if (d <= 160) return launch_simt<160, 64, 32>(ARGS);
+  if (d <= 512) return launch_simt<512, 32, 32>(ARGS);
 #undef ARGS
   return cudaErrorInvalidValue;
-}
-
-// 16-byte vector loads of head rows are legal: 8-element rows and strides, aligned base
-bool aligned16(const void* p, const Strides& st, int d) {
-  return d % 8 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 &&
-         st.s % 8 == 0 && st.h % 8 == 0;
 }
 
 }  // namespace
@@ -506,8 +570,11 @@ extern "C" {
 const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  lse is null
-// or a contiguous fp32 [B, H, Sq].  Returns the cudaError_t of the launch
-// (0 = success); the kernel runs on `stream`.
+// or a contiguous fp32 [B, H, Sq].  bf16 needs what TMA needs: D % 8 == 0,
+// 16-byte aligned bases, S and B strides of a multiple of 8 elements, and
+// heads side by side (head stride D) or a head stride of a multiple of 8.
+// Returns the cudaError_t of the launch (0 = success, cudaErrorInvalidValue
+// for input outside these bounds); the kernel runs on `stream`.
 int madm_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                              void* lse, int b, int sq, int sk, int h, int d,
                              long long q_sb, long long q_ss, long long q_sh,
@@ -520,16 +587,38 @@ int madm_flash_attention_fwd(int dtype, const void* q, const void* k, const void
   const float qscale = scale * 1.4426950408889634f;  // fold log2(e): softmax in base 2
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = dispatch<float>(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os,
-                          qscale, false, st);
-  else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks,
-                                  vs, os, qscale,
-                                  aligned16(q, qs, d) && aligned16(k, ks, d) && aligned16(v, vs, d), st);
+  if (d < 1 || d > 512)
+    err = cudaErrorInvalidValue;
+  else if (dtype == 0)
+    err = dispatch_simt(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
+  else if (dtype == 1 && d % 8 == 0)
+    err = dispatch_tma(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// The bf16 body's launch plan for a shape, for holding attention_plan() to
+// it: out = {padded D, q rows a block, keys a tile, consumer warpgroups,
+// D split over them, ring stages, dynamic shared memory bytes}.
+void madm_flash_attention_fwd_plan(int b, int sq, int sk, int h, int d, int* out) {
+  const FwdPlan p = fwd_plan(b, sq, sk, h, d);
+  const int v[7] = {p.dn, p.bq, p.bk, p.nwg, p.splitd, p.stages, plan_smem(p)};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+}
+
+// Host nanoseconds to get one bf16 tensor map of a [1, s, h, d] tensor at
+// `base`, the mean of `iters`: encoded each time, or from the table of
+// encoded maps (`cached`).  A forward call gets three.
+double madm_tensor_map_encode_ns(const void* base, int s, int h, int d, int iters, int cached) {
+  CUtensorMap m;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < iters; ++i)
+    if (!(cached ? cached_bf16_map : bf16_map)(&m, base, 1, s, h, d, (long long)s * h * d,
+                                              (long long)h * d, d, 128))
+      return -1.0;
+  const auto t1 = std::chrono::steady_clock::now();
+  return std::chrono::duration<double, std::nano>(t1 - t0).count() / iters;
 }
 
 }  // extern "C"

@@ -8,74 +8,86 @@
 //   dP = dO V^T,  delta = rowsum(dO * O) = rowsum(dP * P)
 //   dS = P * (dP - delta)
 //   dQ = dS K * scale,  dK = dS^T Q * scale
-// on contiguous [B, S, H, D] tensors; lse and delta are fp32 [B, H, Sq].
-// dq, dk and dv come out in the input dtype from fp32 accumulators.
+// on contiguous [B, S, H, D] tensors; lse is fp32 [B, H, Sq].  dq, dk and
+// dv come out in the input dtype from fp32 accumulators.
 //
 // Bound on the H100: 10*Sq*Sk*D operations per head (the TPU kernel's own
 // count) against ~(4*Sq + 4*Sk)*D elements moved: far above the ~295
 // ops/byte ridge, so it is bound by operations.  The TPU kernel walked the
 // q blocks of a head in order on one core and accumulated dk/dv in a
 // revisited output block; Hopper blocks run in parallel in no order, so this
-// port follows FlashAttention-2 instead, without atomics and deterministic:
-//   1. delta_kernel: delta = rowsum(dO * O) in fp32, one warp per row;
-//   2. dkdv kernel: parallel over K/V tiles, loops over the q tiles of the
-//      head and keeps the tile's dK/dV accumulators in registers;
-//   3. dq kernel: parallel over q tiles, loops over the K/V tiles.
-// P and dS never reach device memory.  The scores are recomputed in both
-// passes (7 products where an atomic dq would need 5): the price of no atomics.
-// Keys past kv_len (the ragged last tile, e.g. Sk=77) get P = 0, query rows
-// past Sq contribute nothing; D is padded to the tile width in shared memory
-// only (D=40 -> 48).  D > 160 is refused: the only larger head, the VAE's
-// D=512 mid-block attention, never trains.
+// port follows FlashAttention-2's split into a dK/dV pass over key tiles and
+// a dQ pass over query tiles, without atomics and deterministic: the scores
+// are recomputed in both (7 products where an atomic dq would need 5, the
+// price of a dq whose rounding does not change from run to run).  P and dS
+// never reach device memory.  D > 160 is refused: the only larger head, the
+// VAE's D=512 mid-block attention, never trains.
 //
 // Two bodies, one per dtype:
-// - bf16 (the train step): tensor cores through mma.sync m16n8k16 (bf16 in,
-//   fp32 accumulate), instantiated for the UNet's head dims (D=40 -> 48, 80,
-//   160; other D <= 160 pad to the next of these).  It needs D % 8 == 0 and
-//   16-byte aligned tensors, as every UNet attention has; other bf16 input is
-//   refused, not sent to a slower body.
-//   q is scaled by scale*log2(e) and rounded to bf16 exactly as K1 did, so P
-//   is the forward's P; the softmax runs in base 2.  Each warp owns 16 rows
-//   (keys in the dkdv kernel, queries in the dq kernel); the score tile's
-//   accumulator registers become the A fragments of the next product
-//   (P^T dO, dS^T Q, dS K) without a trip through shared memory.  Tiles that
-//   are B operands of a k-over-rows product are staged transposed.
+// - bf16 (the train step): TMA + wgmma, the scheme of K1
+//   (flash_attention.cu; the layouts are described in hopper.cuh):
+//   1. bwd_prep_kernel, one warp a row: delta = rowsum(dO * O) in fp32,
+//      lse2 = lse * log2(e), and bf16(q * scale * log2(e)), K1's rounding
+//      of q, into a workspace, so that P is the forward's P;
+//   2. dkdv_tma_kernel: a block owns 128 keys (two consumer warpgroups of
+//      64; at D=160 one, for registers), K and V resident; a producer warp streams the Qs, Q, dO
+//      tiles and lse2/delta of each q tile by TMA through a 2-stage mbarrier
+//      ring.  S^T = K Qs^T and dP^T = V dO^T by wgmma from shared memory;
+//      P^T and dS^T = P^T (dP^T - delta) are formed in the accumulator
+//      registers, rounded to bf16 (as on the TPU) and are the register A
+//      operands of dV += P^T dO and dK += dS^T Q, with dO and Q read
+//      MN-major where TMA put them: no transposes.  Shapes with few key
+//      tiles (the 77-key cross-attentions: one tile a head) split their q
+//      tiles over several blocks until 132 run (at least two q tiles a
+//      split, the reduction's traffic being the price); each split writes fp32
+//      partial dK/dV to the workspace and dkdv_reduce_kernel adds them in
+//      split order;
+//   3. dq_tma_kernel: a block owns 64 or 128 queries (Qs, dO resident) and
+//      streams K/V tiles (one 80-key tile for the cross-attentions):
+//      S = Qs K^T, dP = dO V^T, dS in registers as the A operand of
+//      dQ += dS K, K read MN-major.
+//   Keys past Sk get P = 0 (dQ) or are not stored (dK/dV); query rows past
+//   Sq have lse2 = +inf, so P = 0.  D is padded to 48, 80 or 160 and boxed
+//   in 64-column chunks as in K1; the resident operand of each reduction
+//   over D has its columns past D zeroed in shared memory.  It needs
+//   D % 8 == 0 and 16-byte aligned tensors, as every UNet attention has;
+//   other bf16 input is refused, not sent to a slower body.
 // - float32 (the parity path): SIMT fp32 FMA with the tiles in shared
-//   memory, one instantiation padded to D=160.  This body does not use the
-//   tensor cores.
+//   memory, one instantiation padded to D=160, delta from delta_kernel.
+//   This body does not use the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWarps = 4;                 // mma bodies: 4 warps x 16 rows
-constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kSimtThreads = 256;
 
 struct Shape {
   int b, sq, sk, h, d;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-
 // --------------------------------------------------------------- delta
 // delta[b, h, i] = sum_c dO[b, i, h, c] * O[b, i, h, c]; one warp per row
-template <typename T>
-__global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+// (the fp32 body's; the bf16 body's bwd_prep_kernel computes it too)
+__global__ void delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                              float* __restrict__ delta, Shape sh) {
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= (long long)sh.b * sh.sq * sh.h) return;  // whole warps leave together
-  const T* op = o + row * sh.d;
-  const T* gp = dout + row * sh.d;
+  const float* op = o + row * sh.d;
+  const float* gp = dout + row * sh.d;
   float acc = 0.f;
-  for (int c = lane; c < sh.d; c += 32) acc += to_float(op[c]) * to_float(gp[c]);
+  for (int c = lane; c < sh.d; c += 32) acc += op[c] * gp[c];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) {  // row enumerates (b, i, h) in memory order
@@ -265,306 +277,403 @@ dq_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------------------- bf16 tensor-core bodies
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+// ------------------------------------------------ bf16 bodies: TMA + wgmma
+using namespace hopper;
+
+constexpr int kFill = 132;  // the H100's SMs: the dK/dV grid is split until it has this many blocks
+
+// The workspace the wrapper hands in (`delta` of the C entry point), in
+// bytes: lse2 = lse * log2(e) and delta as fp32 [B*H, Sqp] (Sqp = Sq rounded
+// up to 128; the padding rows hold +inf and 0, so that their P is 0), the
+// scaled q = bf16(q * scale * log2(e)) as [B, Sq, H, D], and with NSPLIT > 1
+// the fp32 partial dK and dV, [NSPLIT, B, Sk, H, D] each.
+// attention_plan() in madm_torch/ops/flash_attention.py lays it out alike.
+struct BwdPlan {
+  int dn, bq_kv, nwg_kv, nsplit, bk_q, nwg_q, sqp;
+  long long off_delta, off_qs, off_dkp, off_dvp, bytes;
+};
+
+inline BwdPlan bwd_plan(int b, int sq, int sk, int h, int d) {
+  BwdPlan p{};
+  p.dn = d <= 48 ? 48 : d <= 80 ? 80 : 160;
+  // tiles that keep each consumer within ptxas's 168 registers (hopper.cuh)
+  p.bq_kv = p.dn == 48 ? 64 : 32;
+  p.nwg_kv = p.dn == 160 ? 1 : 2;
+  const int blocks = (sk + 64 * p.nwg_kv - 1) / (64 * p.nwg_kv) * h * b;
+  const int nqt = (sq + p.bq_kv - 1) / p.bq_kv;
+  p.nsplit = blocks >= kFill ? 1 : std::max(1, std::min((kFill + blocks - 1) / blocks, nqt / 2));
+  p.bk_q = sk <= 80 ? 80 : 64;
+  p.nwg_q = (long long)(sq + 127) / 128 * h * b >= kFill ? 2 : 1;  // as K1 chooses
+  p.sqp = (sq + 127) / 128 * 128;
+  const long long rows = (long long)b * h * p.sqp, part = (long long)b * sk * h * d * 4;
+  p.off_delta = 4 * rows;
+  p.off_qs = 8 * rows;
+  p.off_dkp = (p.off_qs + 2LL * b * sq * h * d + 255) / 256 * 256;
+  p.off_dvp = p.off_dkp + (p.nsplit > 1 ? p.nsplit * part : 0);
+  p.bytes = p.off_dvp + (p.nsplit > 1 ? p.nsplit * part : 0);
+  return p;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo -> low half (lower column)
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+struct BwdArgs {
+  int sq, sk, d, sqp, nsplit;
+  float scale;
+};
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// rows [r0, r0 + n) x D of a [B, S, H, D] head into a [n][ld] bf16 tile (and,
-// when tr != nullptr, its transpose [DP][ldt]); rows past `rows` and columns
-// past D are zero; with qscale != 0 the row-major copy is q * qscale rounded
-// to bf16 as in K1 while the transpose keeps q
-template <int DP>
-__device__ __forceinline__ void stage(const bf16* __restrict__ src, long long srow, int r0,
-                                      int n, int rows, int d, bf16* dst, int ld, bf16* tr,
-                                      int ldt, float qscale) {
-  constexpr int V8 = DP / 8;
-  for (int e = threadIdx.x; e < n * V8; e += kMmaThreads) {
-    const int r = e / V8, c8 = (e - r * V8) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows && c8 < d) raw = *reinterpret_cast<const uint4*>(src + (r0 + r) * srow + c8);
-    const bf16* x8 = reinterpret_cast<const bf16*>(&raw);
-    if (qscale != 0.f) {
-      __align__(16) bf16 y8[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) y8[i] = __float2bfloat16(__bfloat162float(x8[i]) * qscale);
-      *reinterpret_cast<uint4*>(dst + r * ld + c8) = *reinterpret_cast<const uint4*>(y8);
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c8) = raw;
+// one warp a row (b, h, i), i < Sqp: delta = rowsum(dO * O), lse2, and the
+// row of q scaled and rounded as K1 did
+__global__ void bwd_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
+                                const bf16* __restrict__ dout, const float* __restrict__ lse,
+                                bf16* __restrict__ qs, float* __restrict__ lse2,
+                                float* __restrict__ delta, Shape sh, int sqp, float qscale) {
+  const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)sh.b * sh.h * sqp) return;  // whole warps leave together
+  const long long bh = row / sqp;
+  const int i = (int)(row - bh * sqp), hh = (int)(bh % sh.h), b = (int)(bh / sh.h);
+  if (i >= sh.sq) {
+    if (lane == 0) {
+      lse2[row] = CUDART_INF_F;
+      delta[row] = 0.f;
     }
-    if (tr != nullptr) {
+    return;
+  }
+  const long long base = (((long long)b * sh.sq + i) * sh.h + hh) * sh.d;
+  float acc = 0.f;
+  for (int c = lane; c < sh.d; c += 32) {
+    acc += __bfloat162float(o[base + c]) * __bfloat162float(dout[base + c]);
+    qs[base + c] = __float2bfloat16(__bfloat162float(q[base + c]) * qscale);
+  }
 #pragma unroll
-      for (int i = 0; i < 8; ++i) tr[(c8 + i) * ldt + r] = x8[i];
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    delta[row] = acc;
+    lse2[row] = lse[bh * sh.sq + i] * kLog2e;
+  }
+}
+
+// zero columns [d, NCH*64) of an [rows][64]-chunked swizzled tile (what a
+// flat map brought of the next head), by `nthr` threads from `t`
+template <int NCH>
+__device__ __forceinline__ void zero_tail(unsigned char* tile, int rows, int d, int t, int nthr) {
+  for (int e = t; e < NCH * rows * 8; e += nthr) {
+    const int c = e / (rows * 8), r = (e / 8) % rows;
+    if (c * 64 + (((e % 8) ^ (r & 7)) * 8) >= d) *reinterpret_cast<uint4*>(tile + e * 16) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// dK/dV: a block owns 64 NWG keys (a consumer warpgroup each 64) and the q
+// tiles of its split; grid (ceil(Sk / (64 NWG)), H, B * NSPLIT)
+template <int DN, int BQ, int NWG>
+struct DkdvTile {
+  static constexpr int NCH = (DN + 63) / 64, BKV = 64 * NWG, STAGES = 2;
+  static constexpr int KV_BYTES = NCH * BKV * 128;
+  static constexpr int QT_BYTES = NCH * BQ * 128;  // one of the Qs, Q and dO tiles
+  static constexpr int STAGE_BYTES = (3 * QT_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  static constexpr int BAR_OFF = 2 * KV_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+  static constexpr int THREADS = 128 * NWG + 32;  // consumer warpgroups, one producer warp
+};
+
+template <int DN, int BQ, int NWG>
+__global__ void __launch_bounds__(128 * NWG + 32, 1)
+dkdv_tma_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tg, const float* __restrict__ lse2,
+                const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                float* __restrict__ dkp, float* __restrict__ dvp, BwdArgs a) {
+  using L = DkdvTile<DN, BQ, NWG>;
+  constexpr int NCH = L::NCH, BKV = L::BKV, STAGES = L::STAGES, KS = DN / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sK = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sV = sK + L::KV_BYTES;
+  unsigned char* sStage = sV + L::KV_BYTES;  // [STAGES] x {Qs, Q, dO, lse2, delta}
+  uint64_t* barKV = reinterpret_cast<uint64_t*>(sK + L::BAR_OFF);
+  uint64_t* full = barKV + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int H = gridDim.y, B = gridDim.z / a.nsplit;
+  const int k0 = blockIdx.x * BKV, hh = blockIdx.y, b = blockIdx.z / a.nsplit, sp = blockIdx.z % a.nsplit;
+  const int nqt = (a.sq + BQ - 1) / BQ;
+  const int t0 = (int)((long long)sp * nqt / a.nsplit), t1 = (int)((long long)(sp + 1) * nqt / a.nsplit);
+  if (tid == 0) {
+    mbar_init(barKV, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NWG);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == NWG) {  // the producer warp
+    if (tid == NWG * 128) {
+      const int col = hh * a.d;
+      mbar_expect_tx(barKV, 2 * L::KV_BYTES);
+      for (int c = 0; c < NCH; ++c) {
+        tma_load(sK + c * BKV * 128, &tk, barKV, col + 64 * c, k0, 0, b, false);
+        tma_load(sV + c * BKV * 128, &tv, barKV, col + 64 * c, k0, 0, b, false);
+      }
+      const long long lrow = ((long long)b * H + hh) * a.sqp;
+      for (int j = t0; j < t1; ++j) {
+        const int it = j - t0, s = it % STAGES, ph = (it / STAGES) & 1;
+        unsigned char* st = sStage + s * L::STAGE_BYTES;
+        mbar_wait(empty + s, ph ^ 1);
+        mbar_expect_tx(full + s, 3 * L::QT_BYTES + 2 * BQ * 4);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(st + c * BQ * 128, &tqs, full + s, col + 64 * c, j * BQ, 0, b, false);
+          tma_load(st + L::QT_BYTES + c * BQ * 128, &tq, full + s, col + 64 * c, j * BQ, 0, b, false);
+          tma_load(st + 2 * L::QT_BYTES + c * BQ * 128, &tg, full + s, col + 64 * c, j * BQ, 0, b, false);
+        }
+        bulk_load(st + 3 * L::QT_BYTES, lse2 + lrow + j * BQ, BQ * 4, full + s);
+        bulk_load(st + 3 * L::QT_BYTES + BQ * 4, delta + lrow + j * BQ, BQ * 4, full + s);
+      }
+    }
+  } else {  // consumers: warpgroup wg owns keys k0 + 64 wg ...
+    const int t = tid % 128, warp = t / 32, lane = t % 32, g = lane / 4, tg4 = lane % 4;
+    mbar_wait(barKV, 0);
+    zero_tail<NCH>(sK, BKV, a.d, tid, NWG * 128);  // K and V columns past D: the reductions over D
+    zero_tail<NCH>(sV, BKV, a.d, tid, NWG * 128);
+    fence_async_smem();
+    named_sync(1, NWG * 128);
+
+    float dka[DN / 2], dva[DN / 2];
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) dka[i] = dva[i] = 0.f;
+    const uint32_t ka = smem_addr(sK) + wg * 64 * 128, va = smem_addr(sV) + wg * 64 * 128;
+    for (int j = t0; j < t1; ++j) {
+      const int it = j - t0, s = it % STAGES, ph = (it / STAGES) & 1;
+      unsigned char* st = sStage + s * L::STAGE_BYTES;
+      const uint32_t qsa = smem_addr(st), qa = qsa + L::QT_BYTES, ga = qsa + 2 * L::QT_BYTES;
+      const float* sL = reinterpret_cast<const float*>(st + 3 * L::QT_BYTES);
+      const float* sD = sL + BQ;
+      mbar_wait(full + s, ph);
+      // S^T = K Qs^T and dP^T = V dO^T: this warpgroup's 64 keys x BQ queries
+      float sacc[BQ / 2], dpacc[BQ / 2];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) sacc[i] = dpacc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_ss<BQ>(sacc, desc(ka + (k / 4) * BKV * 128 + (k % 4) * 32, 16),
+                     desc(qsa + (k / 4) * BQ * 128 + (k % 4) * 32, 16), k > 0);
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_ss<BQ>(dpacc, desc(va + (k / 4) * BKV * 128 + (k % 4) * 32, 16),
+                     desc(ga + (k / 4) * BQ * 128 + (k % 4) * 32, 16), k > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      // P^T = exp2(S^T - lse2) and dS^T = P^T (dP^T - delta), query = column
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * tg4 + (e & 1);
+          const float p = exp2f(sacc[4 * n + e] - sL[col]);
+          sacc[4 * n + e] = p;
+          dpacc[4 * n + e] = p * (dpacc[4 * n + e] - sD[col]);
+        }
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+          da[kk][e] = pack_bf16(dpacc[8 * kk + 2 * e], dpacc[8 * kk + 2 * e + 1]);
+        }
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major where TMA put them
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DN>(dva, pa[kk], desc(ga + kk * 2048, BQ * 128), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DN>(dka, da[kk], desc(qa + kk * 2048, BQ * 128), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(da);
+      if (t == 0) mbar_arrive(empty + s);
+    }
+
+    const int r0 = k0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const long long rs = (long long)H * a.d;
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) {
+      const int c = 8 * n + 2 * tg4;  // D % 8 == 0: c < D implies c + 1 < D
+      if (c >= a.d) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = half ? r1 : r0;
+        if (r >= a.sk) continue;
+        const long long at = ((long long)b * a.sk + r) * rs + (long long)hh * a.d + c;
+        const float k0v = dka[4 * n + 2 * half], k1v = dka[4 * n + 2 * half + 1];
+        const float v0v = dva[4 * n + 2 * half], v1v = dva[4 * n + 2 * half + 1];
+        if (a.nsplit == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(k0v * a.scale, k1v * a.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(v0v, v1v);
+        } else {
+          const long long pt = (long long)sp * B * a.sk * rs + at;
+          *reinterpret_cast<float2*>(dkp + pt) = make_float2(k0v, k1v);
+          *reinterpret_cast<float2*>(dvp + pt) = make_float2(v0v, v1v);
+        }
+      }
     }
   }
 }
 
-template <int DP, int BQ>
-constexpr size_t dkdv_mma_smem_bytes() {
-  return sizeof(bf16) * (2 * (16 * kWarps) * (DP + 8) + 2 * BQ * (DP + 8) + 2 * DP * (BQ + 8)) +
-         sizeof(float) * 2 * BQ;
-}
-
-// grid (ceil(Sk / 64), H, B): each warp owns 16 keys; loop over q tiles of BQ
-template <int DP, int BQ>
-__global__ void __launch_bounds__(kMmaThreads)
-dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dk, bf16* __restrict__ dv, Shape sh, float qscale,
-                float scale) {
-  constexpr int BKV = 16 * kWarps;
-  constexpr int LD = DP + 8, LT = BQ + 8;  // 32-bit fragment loads stay aligned
-  constexpr int NQ = BQ / 8;               // query n-tiles of S^T and dP^T
-  constexpr int DT = DP / 8;               // head-dim n-tiles of dK and dV
-  static_assert(DP % 16 == 0 && BQ % 16 == 0, "tile shape");
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [BKV][LD]
-  bf16* Vs = Ks + BKV * LD;                      // [BKV][LD]
-  bf16* Qs = Vs + BKV * LD;                      // [BQ][LD]  q * scale * log2(e)
-  bf16* Gs = Qs + BQ * LD;                       // [BQ][LD]  dO
-  bf16* Qt = Gs + BQ * LD;                       // [DP][LT]  q^T
-  bf16* Gt = Qt + DP * LT;                       // [DP][LT]  dO^T
-  float* Ls = reinterpret_cast<float*>(Gt + DP * LT);  // [BQ] lse, log2 units
-  float* Ds = Ls + BQ;                                 // [BQ] delta
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tg = lane & 3;  // mma fragment group / thread-in-group
-  const int k0 = blockIdx.x * BKV, hh = blockIdx.y, b = blockIdx.z;
-  const int H = sh.h, D = sh.d;
-  const long long srow = (long long)H * D;
-  const bf16* qb = q + ((long long)b * sh.sq * H + hh) * D;
-  const bf16* gb = dout + ((long long)b * sh.sq * H + hh) * D;
-  const bf16* kb = k + ((long long)b * sh.sk * H + hh) * D;
-  const bf16* vb = v + ((long long)b * sh.sk * H + hh) * D;
-  const float* lb = lse + ((long long)b * H + hh) * sh.sq;
-  const float* db = delta + ((long long)b * H + hh) * sh.sq;
-
-  stage<DP>(kb, srow, k0, BKV, sh.sk, D, Ks, LD, nullptr, 0, 0.f);
-  stage<DP>(vb, srow, k0, BKV, sh.sk, D, Vs, LD, nullptr, 0, 0.f);
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  const bf16* krow0 = Ks + (16 * warp + g) * LD + 2 * tg;
-  const bf16* krow1 = krow0 + 8 * LD;
-  const bf16* vrow0 = Vs + (16 * warp + g) * LD + 2 * tg;
-  const bf16* vrow1 = vrow0 + 8 * LD;
-
-  for (int q0 = 0; q0 < sh.sq; q0 += BQ) {
-    __syncthreads();  // K/V written (first tile); the q-side tiles free (later)
-    stage<DP>(qb, srow, q0, BQ, sh.sq, D, Qs, LD, Qt, LT, qscale);
-    stage<DP>(gb, srow, q0, BQ, sh.sq, D, Gs, LD, Gt, LT, 0.f);
-    for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
-      const bool ok = q0 + r < sh.sq;
-      Ls[r] = ok ? lb[q0 + r] * kLog2e : 0.f;
-      Ds[r] = ok ? db[q0 + r] : 0.f;
+// dK and dV from the NSPLIT fp32 partials, summed in split order
+__global__ void dkdv_reduce_kernel(const float* __restrict__ dkp, const float* __restrict__ dvp,
+                                   bf16* __restrict__ dk, bf16* __restrict__ dv, long long n,
+                                   int nsplit, float scale) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float sk = 0.f, sv = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+      sk += dkp[s * n + i];
+      sv += dvp[s * n + i];
     }
-    __syncthreads();
-
-    // S^T = K Qs^T and dP^T = V dO^T: this warp's 16 keys x BQ queries
-    float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const uint32_t a0 = ld32(krow0 + kk), a1 = ld32(krow1 + kk);
-      const uint32_t a2 = ld32(krow0 + kk + 8), a3 = ld32(krow1 + kk + 8);
-      const uint32_t c0 = ld32(vrow0 + kk), c1 = ld32(vrow1 + kk);
-      const uint32_t c2 = ld32(vrow0 + kk + 8), c3 = ld32(vrow1 + kk + 8);
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        const bf16* qp = Qs + (8 * j + g) * LD + kk + 2 * tg;
-        mma_bf16_16816(st[j], a0, a1, a2, a3, ld32(qp), ld32(qp + 8));
-        const bf16* gp = Gs + (8 * j + g) * LD + kk + 2 * tg;
-        mma_bf16_16816(dpt[j], c0, c1, c2, c3, ld32(gp), ld32(gp + 8));
-      }
-    }
-    // P^T and dS^T in place; element e of n-tile j is query 8j + 2tg + (e & 1)
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * tg + (e & 1);
-        const float p = (q0 + col < sh.sq) ? exp2f(st[j][e] - Ls[col]) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - Ds[col]);
-      }
-
-    // dV += P^T dO and dK += dS^T q, 16 queries per step
-#pragma unroll
-    for (int kq = 0; kq < BQ / 16; ++kq) {
-      const uint32_t p0 = pack_bf16(st[2 * kq][0], st[2 * kq][1]);
-      const uint32_t p1 = pack_bf16(st[2 * kq][2], st[2 * kq][3]);
-      const uint32_t p2 = pack_bf16(st[2 * kq + 1][0], st[2 * kq + 1][1]);
-      const uint32_t p3 = pack_bf16(st[2 * kq + 1][2], st[2 * kq + 1][3]);
-      const uint32_t s0 = pack_bf16(dpt[2 * kq][0], dpt[2 * kq][1]);
-      const uint32_t s1 = pack_bf16(dpt[2 * kq][2], dpt[2 * kq][3]);
-      const uint32_t s2 = pack_bf16(dpt[2 * kq + 1][0], dpt[2 * kq + 1][1]);
-      const uint32_t s3 = pack_bf16(dpt[2 * kq + 1][2], dpt[2 * kq + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < DT; ++jd) {
-        const bf16* gp = Gt + (8 * jd + g) * LT + 16 * kq + 2 * tg;
-        mma_bf16_16816(dva[jd], p0, p1, p2, p3, ld32(gp), ld32(gp + 8));
-        const bf16* qp = Qt + (8 * jd + g) * LT + 16 * kq + 2 * tg;
-        mma_bf16_16816(dka[jd], s0, s1, s2, s3, ld32(qp), ld32(qp + 8));
-      }
-    }
-  }
-
-  const int r0 = k0 + 16 * warp + g, r1 = r0 + 8;
-  bf16* dkb = dk + ((long long)b * sh.sk * H + hh) * D;
-  bf16* dvb = dv + ((long long)b * sh.sk * H + hh) * D;
-#pragma unroll
-  for (int jd = 0; jd < DT; ++jd) {
-    const int c = 8 * jd + 2 * tg;  // D % 8 == 0: c < D implies c + 1 < D
-    if (c >= D) continue;
-    if (r0 < sh.sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + r0 * srow + c) =
-          __floats2bfloat162_rn(dka[jd][0] * scale, dka[jd][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + r0 * srow + c) =
-          __floats2bfloat162_rn(dva[jd][0], dva[jd][1]);
-    }
-    if (r1 < sh.sk) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + r1 * srow + c) =
-          __floats2bfloat162_rn(dka[jd][2] * scale, dka[jd][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + r1 * srow + c) =
-          __floats2bfloat162_rn(dva[jd][2], dva[jd][3]);
-    }
+    dk[i] = __float2bfloat16(sk * scale);
+    dv[i] = __float2bfloat16(sv);
   }
 }
 
-template <int DP, int BK>
-constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(bf16) * (2 * (16 * kWarps) * (DP + 8) + 2 * BK * (DP + 8) + DP * (BK + 8));
-}
+// dQ: a block owns 64 NWG queries (Qs and dO resident) and loops over the
+// key tiles; grid (ceil(Sq / (64 NWG)), H, B)
+template <int DN, int BK, int NWG>
+struct DqTile {
+  static constexpr int NCH = (DN + 63) / 64, BQ = 64 * NWG, STAGES = 2;
+  static constexpr int QT_BYTES = NCH * BQ * 128;
+  static constexpr int KV_BYTES = NCH * BK * 128;
+  static constexpr int BAR_OFF = 2 * QT_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * STAGES);
+  static constexpr int THREADS = 128 * NWG + 32;
+};
 
-// grid (ceil(Sq / 64), H, B): each warp owns 16 queries; loop over K/V tiles of BK
-template <int DP, int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, Shape sh, float qscale, float scale) {
-  constexpr int BQ = 16 * kWarps;
-  constexpr int LD = DP + 8, LT = BK + 8;
-  constexpr int NT = BK / 8;  // key n-tiles of S and dP
-  constexpr int DT = DP / 8;  // head-dim n-tiles of dQ
-  static_assert(DP % 16 == 0 && BK % 16 == 0, "tile shape");
+template <int DN, int BK, int NWG>
+__global__ void __launch_bounds__(128 * NWG + 32, 1)
+dq_tma_kernel(const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tg,
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+              const float* __restrict__ lse2, const float* __restrict__ delta, bf16* __restrict__ dq,
+              BwdArgs a) {
+  using L = DqTile<DN, BK, NWG>;
+  constexpr int NCH = L::NCH, BQ = L::BQ, STAGES = L::STAGES, KS = DN / 16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sG = sQ + L::QT_BYTES;
+  unsigned char* sK = sG + L::QT_BYTES;  // [STAGES] K, then [STAGES] V
+  unsigned char* sV = sK + STAGES * L::KV_BYTES;
+  uint64_t* barQ = reinterpret_cast<uint64_t*>(sQ + L::BAR_OFF);
+  uint64_t* full = barQ + 1;
+  uint64_t* empty = full + STAGES;
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]  q * scale * log2(e)
-  bf16* Gs = Qs + BQ * LD;                       // [BQ][LD]  dO
-  bf16* Ks = Gs + BQ * LD;                       // [BK][LD]
-  bf16* Vs = Ks + BK * LD;                       // [BK][LD]
-  bf16* Kt = Vs + BK * LD;                       // [DP][LT]  K^T
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tg = lane & 3;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int H = gridDim.y;
   const int q0 = blockIdx.x * BQ, hh = blockIdx.y, b = blockIdx.z;
-  const int H = sh.h, D = sh.d;
-  const long long srow = (long long)H * D;
-  const bf16* qb = q + ((long long)b * sh.sq * H + hh) * D;
-  const bf16* gb = dout + ((long long)b * sh.sq * H + hh) * D;
-  const bf16* kb = k + ((long long)b * sh.sk * H + hh) * D;
-  const bf16* vb = v + ((long long)b * sh.sk * H + hh) * D;
-  const float* lb = lse + ((long long)b * H + hh) * sh.sq;
-  const float* db = delta + ((long long)b * H + hh) * sh.sq;
-
-  stage<DP>(qb, srow, q0, BQ, sh.sq, D, Qs, LD, nullptr, 0, qscale);
-  stage<DP>(gb, srow, q0, BQ, sh.sq, D, Gs, LD, nullptr, 0, 0.f);
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;  // this thread's two query rows
-  const float l0 = r0 < sh.sq ? lb[r0] * kLog2e : 0.f, l1 = r1 < sh.sq ? lb[r1] * kLog2e : 0.f;
-  const float d0 = r0 < sh.sq ? db[r0] : 0.f, d1 = r1 < sh.sq ? db[r1] : 0.f;
-
-  float dqa[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-  const bf16* qrow0 = Qs + (16 * warp + g) * LD + 2 * tg;
-  const bf16* qrow1 = qrow0 + 8 * LD;
-  const bf16* grow0 = Gs + (16 * warp + g) * LD + 2 * tg;
-  const bf16* grow1 = grow0 + 8 * LD;
-
-  for (int k0 = 0; k0 < sh.sk; k0 += BK) {
-    __syncthreads();  // q-side tiles written (first tile); K/V tiles free (later)
-    stage<DP>(kb, srow, k0, BK, sh.sk, D, Ks, LD, Kt, LT, 0.f);
-    stage<DP>(vb, srow, k0, BK, sh.sk, D, Vs, LD, nullptr, 0, 0.f);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      const uint32_t a0 = ld32(qrow0 + kk), a1 = ld32(qrow1 + kk);
-      const uint32_t a2 = ld32(qrow0 + kk + 8), a3 = ld32(qrow1 + kk + 8);
-      const uint32_t c0 = ld32(grow0 + kk), c1 = ld32(grow1 + kk);
-      const uint32_t c2 = ld32(grow0 + kk + 8), c3 = ld32(grow1 + kk + 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* kp = Ks + (8 * j + g) * LD + kk + 2 * tg;
-        mma_bf16_16816(s[j], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
-        const bf16* vp = Vs + (8 * j + g) * LD + kk + 2 * tg;
-        mma_bf16_16816(dp[j], c0, c1, c2, c3, ld32(vp), ld32(vp + 8));
-      }
+  const int ntiles = (a.sk + BK - 1) / BK;
+  if (tid == 0) {
+    mbar_init(barQ, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NWG);
     }
-    // dS in place of s; elements 0, 1 are row g, elements 2, 3 row g + 8
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * tg + (e & 1);
-        const float p = key < sh.sk ? exp2f(s[j][e] - (e < 2 ? l0 : l1)) : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));
-      }
-    // dQ += dS K, 16 keys per step
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int jd = 0; jd < DT; ++jd) {
-        const bf16* kp = Kt + (8 * jd + g) * LT + 16 * kk + 2 * tg;
-        mma_bf16_16816(dqa[jd], a0, a1, a2, a3, ld32(kp), ld32(kp + 8));
-      }
-    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  bf16* dqb = dq + ((long long)b * sh.sq * H + hh) * D;
+  if (wg == NWG) {  // the producer warp
+    if (tid == NWG * 128) {
+      const int col = hh * a.d;
+      mbar_expect_tx(barQ, 2 * L::QT_BYTES);
+      for (int c = 0; c < NCH; ++c) {
+        tma_load(sQ + c * BQ * 128, &tqs, barQ, col + 64 * c, q0, 0, b, false);
+        tma_load(sG + c * BQ * 128, &tg, barQ, col + 64 * c, q0, 0, b, false);
+      }
+      for (int j = 0; j < ntiles; ++j) {
+        const int s = j % STAGES, ph = (j / STAGES) & 1;
+        mbar_wait(empty + s, ph ^ 1);
+        mbar_expect_tx(full + s, 2 * L::KV_BYTES);
+        for (int c = 0; c < NCH; ++c) {
+          tma_load(sK + s * L::KV_BYTES + c * BK * 128, &tk, full + s, col + 64 * c, j * BK, 0, b, false);
+          tma_load(sV + s * L::KV_BYTES + c * BK * 128, &tv, full + s, col + 64 * c, j * BK, 0, b, false);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wg owns queries q0 + 64 wg ...
+    const int t = tid % 128, warp = t / 32, lane = t % 32, g = lane / 4, tg4 = lane % 4;
+    mbar_wait(barQ, 0);
+    zero_tail<NCH>(sQ, BQ, a.d, tid, NWG * 128);  // Qs and dO columns past D
+    zero_tail<NCH>(sG, BQ, a.d, tid, NWG * 128);
+    fence_async_smem();
+    named_sync(1, NWG * 128);
+
+    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;  // < Sqp
+    const long long lrow = ((long long)b * H + hh) * a.sqp;
+    const float l0 = lse2[lrow + r0], l1 = lse2[lrow + r1];
+    const float d0 = delta[lrow + r0], d1 = delta[lrow + r1];
+    float dqa[DN / 2];
 #pragma unroll
-  for (int jd = 0; jd < DT; ++jd) {
-    const int c = 8 * jd + 2 * tg;
-    if (c >= D) continue;
-    if (r0 < sh.sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + r0 * srow + c) =
-          __floats2bfloat162_rn(dqa[jd][0] * scale, dqa[jd][1] * scale);
-    if (r1 < sh.sq)
-      *reinterpret_cast<__nv_bfloat162*>(dqb + r1 * srow + c) =
-          __floats2bfloat162_rn(dqa[jd][2] * scale, dqa[jd][3] * scale);
+    for (int i = 0; i < DN / 2; ++i) dqa[i] = 0.f;
+    const uint32_t qa = smem_addr(sQ) + wg * 64 * 128, ga = smem_addr(sG) + wg * 64 * 128;
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES, ph = (j / STAGES) & 1;
+      const uint32_t kt = smem_addr(sK + s * L::KV_BYTES), vt = smem_addr(sV + s * L::KV_BYTES);
+      mbar_wait(full + s, ph);
+      float sacc[BK / 2], dpacc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sacc[i] = dpacc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_ss<BK>(sacc, desc(qa + (k / 4) * BQ * 128 + (k % 4) * 32, 16),
+                     desc(kt + (k / 4) * BK * 128 + (k % 4) * 32, 16), k > 0);
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        wgmma_ss<BK>(dpacc, desc(ga + (k / 4) * BQ * 128 + (k % 4) * 32, 16),
+                     desc(vt + (k / 4) * BK * 128 + (k % 4) * 32, 16), k > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      // dS = P (dP - delta); keys past Sk get P = 0
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * BK + 8 * n + 2 * tg4 + (e & 1);
+          const float p = key < a.sk ? exp2f(sacc[4 * n + e] - (e < 2 ? l0 : l1)) : 0.f;
+          sacc[4 * n + e] = p * (dpacc[4 * n + e] - (e < 2 ? d0 : d1));
+        }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) da[kk][e] = pack_bf16(sacc[8 * kk + 2 * e], sacc[8 * kk + 2 * e + 1]);
+      // dQ += dS K, K read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs<DN>(dqa, da[kk], desc(kt + kk * 2048, BK * 128), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(dqa);
+      fence_regs(da);
+      if (t == 0) mbar_arrive(empty + s);
+    }
+
+    const long long rs = (long long)H * a.d;
+#pragma unroll
+    for (int n = 0; n < DN / 8; ++n) {
+      const int c = 8 * n + 2 * tg4;
+      if (c >= a.d) continue;
+      if (r0 < a.sq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + ((long long)b * a.sq + r0) * rs + hh * a.d + c) =
+            __floats2bfloat162_rn(dqa[4 * n] * a.scale, dqa[4 * n + 1] * a.scale);
+      if (r1 < a.sq)
+        *reinterpret_cast<__nv_bfloat162*>(dq + ((long long)b * a.sq + r1) * rs + hh * a.d + c) =
+            __floats2bfloat162_rn(dqa[4 * n + 2] * a.scale, dqa[4 * n + 3] * a.scale);
+    }
   }
 }
 
@@ -579,43 +688,122 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename T>
 cudaError_t launch_delta(const Args& a) {
   const long long rows = (long long)a.sh.b * a.sh.sq * a.sh.h;
   const int per_block = kSimtThreads / 32;
-  delta_kernel<T><<<(unsigned)((rows + per_block - 1) / per_block), kSimtThreads, 0, a.st>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.sh);
+  delta_kernel<<<(unsigned)((rows + per_block - 1) / per_block), kSimtThreads, 0, a.st>>>(
+      static_cast<const float*>(a.o), static_cast<const float*>(a.dout), a.delta, a.sh);
   return cudaGetLastError();
 }
 
-template <int DP, int BQ, int BK>
-cudaError_t launch_mma(const Args& a) {
-  cudaError_t err = launch_delta<bf16>(a);
+template <int DN, int BQ, int NWG>
+cudaError_t launch_dkdv(const CUtensorMap (&m)[5], const float* lse2, const float* delta, void* dk,
+                        void* dv, float* dkp, float* dvp, const Shape& sh, const BwdArgs& ba,
+                        cudaStream_t st) {
+  using L = DkdvTile<DN, BQ, NWG>;
+  constexpr auto kern = dkdv_tma_kernel<DN, BQ, NWG>;
+  cudaError_t err = set_smem_once<kern>(L::SMEM);
   if (err != cudaSuccess) return err;
-  const bf16 *q = static_cast<const bf16*>(a.q), *k = static_cast<const bf16*>(a.k),
-             *v = static_cast<const bf16*>(a.v), *g = static_cast<const bf16*>(a.dout);
-  constexpr size_t s1 = dkdv_mma_smem_bytes<DP, BQ>(), s2 = dq_mma_smem_bytes<DP, BK>();
-  auto k1 = dkdv_mma_kernel<DP, BQ>;
-  auto k2 = dq_mma_kernel<DP, BK>;
-  err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
-  if (err != cudaSuccess) return err;
-  constexpr int R = 16 * kWarps;
-  k1<<<dim3((a.sh.sk + R - 1) / R, a.sh.h, a.sh.b), kMmaThreads, s1, a.st>>>(
-      q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sh,
-      a.qscale, a.scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  k2<<<dim3((a.sh.sq + R - 1) / R, a.sh.h, a.sh.b), kMmaThreads, s2, a.st>>>(
-      q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dq), a.sh, a.qscale, a.scale);
+  kern<<<dim3((sh.sk + L::BKV - 1) / L::BKV, sh.h, sh.b * ba.nsplit), L::THREADS, L::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], m[4], lse2, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dkp,
+      dvp, ba);
   return cudaGetLastError();
+}
+
+template <int DN, int BK, int NWG>
+cudaError_t launch_dq(const CUtensorMap (&m)[4], const float* lse2, const float* delta, void* dq,
+                      const Shape& sh, const BwdArgs& ba, cudaStream_t st) {
+  using L = DqTile<DN, BK, NWG>;
+  constexpr auto kern = dq_tma_kernel<DN, BK, NWG>;
+  cudaError_t err = set_smem_once<kern>(L::SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3((sh.sq + L::BQ - 1) / L::BQ, sh.h, sh.b), L::THREADS, L::SMEM, st>>>(
+      m[0], m[1], m[2], m[3], lse2, delta, static_cast<bf16*>(dq), ba);
+  return cudaGetLastError();
+}
+
+template <int DN, int BK>
+cudaError_t launch_dq_rows(int nwg, const CUtensorMap (&m)[4], const float* lse2, const float* delta,
+                           void* dq, const Shape& sh, const BwdArgs& ba, cudaStream_t st) {
+  return nwg == 1 ? launch_dq<DN, BK, 1>(m, lse2, delta, dq, sh, ba, st)
+                  : launch_dq<DN, BK, 2>(m, lse2, delta, dq, sh, ba, st);
+}
+
+// smem of the two kernels of a plan: {dK/dV, dQ}
+void plan_smem(const BwdPlan& p, int* out) {
+#define DQ(DN, BK) (p.nwg_q == 1 ? DqTile<DN, BK, 1>::SMEM : DqTile<DN, BK, 2>::SMEM)
+  if (p.dn == 48) {
+    out[0] = DkdvTile<48, 64, 2>::SMEM;
+    out[1] = p.bk_q == 80 ? DQ(48, 80) : DQ(48, 64);
+  } else if (p.dn == 80) {
+    out[0] = DkdvTile<80, 32, 2>::SMEM;
+    out[1] = p.bk_q == 80 ? DQ(80, 80) : DQ(80, 64);
+  } else {
+    out[0] = DkdvTile<160, 32, 1>::SMEM;
+    out[1] = p.bk_q == 80 ? DQ(160, 80) : DQ(160, 64);
+  }
+#undef DQ
+}
+
+// the bf16 path: prep, dK/dV (and its reduction when split), dQ
+cudaError_t launch_tma(const Args& a) {
+  const Shape& sh = a.sh;
+  const BwdPlan p = bwd_plan(sh.b, sh.sq, sh.sk, sh.h, sh.d);
+  unsigned char* ws = reinterpret_cast<unsigned char*>(a.delta);
+  float* lse2 = reinterpret_cast<float*>(ws);
+  float* delta = reinterpret_cast<float*>(ws + p.off_delta);
+  bf16* qs = reinterpret_cast<bf16*>(ws + p.off_qs);
+  float* dkp = reinterpret_cast<float*>(ws + p.off_dkp);
+  float* dvp = reinterpret_cast<float*>(ws + p.off_dvp);
+  const long long rq = (long long)sh.h * sh.d;  // row strides of the contiguous tensors
+  const long long bq = rq * sh.sq, bk = rq * sh.sk;
+
+  const long long rows = (long long)sh.b * sh.h * p.sqp;
+  bwd_prep_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, a.st>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout),
+      a.lse, qs, lse2, delta, sh, p.sqp, a.qscale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  CUtensorMap mk_kv, mv_kv, mqs_kv, mq_kv, mg_kv, mqs_q, mg_q, mk_q, mv_q;
+  const int bkv = 64 * p.nwg_kv;
+  if (!cached_bf16_map(&mk_kv, a.k, sh.b, sh.sk, sh.h, sh.d, bk, rq, sh.d, bkv) ||
+      !cached_bf16_map(&mv_kv, a.v, sh.b, sh.sk, sh.h, sh.d, bk, rq, sh.d, bkv) ||
+      !cached_bf16_map(&mqs_kv, qs, sh.b, sh.sq, sh.h, sh.d, bq, rq, sh.d, p.bq_kv) ||
+      !cached_bf16_map(&mq_kv, a.q, sh.b, sh.sq, sh.h, sh.d, bq, rq, sh.d, p.bq_kv) ||
+      !cached_bf16_map(&mg_kv, a.dout, sh.b, sh.sq, sh.h, sh.d, bq, rq, sh.d, p.bq_kv) ||
+      !cached_bf16_map(&mqs_q, qs, sh.b, sh.sq, sh.h, sh.d, bq, rq, sh.d, 64 * p.nwg_q) ||
+      !cached_bf16_map(&mg_q, a.dout, sh.b, sh.sq, sh.h, sh.d, bq, rq, sh.d, 64 * p.nwg_q) ||
+      !cached_bf16_map(&mk_q, a.k, sh.b, sh.sk, sh.h, sh.d, bk, rq, sh.d, p.bk_q) ||
+      !cached_bf16_map(&mv_q, a.v, sh.b, sh.sk, sh.h, sh.d, bk, rq, sh.d, p.bk_q))
+    return cudaErrorInvalidValue;
+  const CUtensorMap mkv[5] = {mk_kv, mv_kv, mqs_kv, mq_kv, mg_kv};
+  const CUtensorMap mq[4] = {mqs_q, mg_q, mk_q, mv_q};
+  const BwdArgs ba{sh.sq, sh.sk, sh.d, p.sqp, p.nsplit, a.scale};
+
+  if (p.dn == 48) err = launch_dkdv<48, 64, 2>(mkv, lse2, delta, a.dk, a.dv, dkp, dvp, sh, ba, a.st);
+  else if (p.dn == 80) err = launch_dkdv<80, 32, 2>(mkv, lse2, delta, a.dk, a.dv, dkp, dvp, sh, ba, a.st);
+  else err = launch_dkdv<160, 32, 1>(mkv, lse2, delta, a.dk, a.dv, dkp, dvp, sh, ba, a.st);
+  if (err != cudaSuccess) return err;
+  if (p.nsplit > 1) {
+    const long long n = bk * sh.b;
+    const unsigned blocks = (unsigned)std::min((n + 255) / 256, 4LL * kFill);
+    dkdv_reduce_kernel<<<blocks, 256, 0, a.st>>>(
+        dkp, dvp, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), n, p.nsplit, a.scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+#define ARGS p.nwg_q, mq, lse2, delta, a.dq, sh, ba, a.st
+  if (p.dn == 48) return p.bk_q == 80 ? launch_dq_rows<48, 80>(ARGS) : launch_dq_rows<48, 64>(ARGS);
+  if (p.dn == 80) return p.bk_q == 80 ? launch_dq_rows<80, 80>(ARGS) : launch_dq_rows<80, 64>(ARGS);
+  return p.bk_q == 80 ? launch_dq_rows<160, 80>(ARGS) : launch_dq_rows<160, 64>(ARGS);
+#undef ARGS
 }
 
 template <int DPAD>
 cudaError_t launch_simt(const Args& a) {  // the fp32 parity path
   constexpr int BR = 32, BC = 32;  // rows owned by a block, rows of a streamed tile
-  cudaError_t err = launch_delta<float>(a);
+  cudaError_t err = launch_delta(a);
   if (err != cudaSuccess) return err;
   const float *q = static_cast<const float*>(a.q), *k = static_cast<const float*>(a.k),
               *v = static_cast<const float*>(a.v), *g = static_cast<const float*>(a.dout);
@@ -645,11 +833,13 @@ extern "C" {
 const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: contiguous [B, Sq, H, D];
-// k, v, dk, dv: contiguous [B, Sk, H, D]; lse (from the forward) and the
-// scratch delta: contiguous fp32 [B, H, Sq].  D <= 160; bf16 also needs
-// D % 8 == 0 and 16-byte aligned q, k, v, dout, dq, dk, dv.  Returns the
-// cudaError_t of the launches (0 = success, cudaErrorInvalidValue for input
-// outside these bounds); the kernels run on `stream`.
+// k, v, dk, dv: contiguous [B, Sk, H, D]; lse (from the forward): contiguous
+// fp32 [B, H, Sq].  `delta` is the workspace: fp32 [B, H, Sq] for float32,
+// madm_flash_attention_bwd_plan's bytes (16-byte aligned) for bf16.  D <=
+// 160; bf16 also needs D % 8 == 0 and 16-byte aligned q, k, v, dout, dq, dk,
+// dv.  Returns the cudaError_t of the launches (0 = success,
+// cudaErrorInvalidValue for input outside these bounds); the kernels run on
+// `stream`.
 int madm_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse, void* delta,
                              void* dq, void* dk, void* dv, int b, int sq, int sk, int h, int d,
@@ -659,14 +849,23 @@ int madm_flash_attention_bwd(int dtype, const void* q, const void* k, const void
                static_cast<cudaStream_t>(stream)};
   if (d < 1 || d > 160) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return static_cast<int>(launch_simt<160>(a));
-  const bool mma = dtype == 1 && d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
-                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv);
-  if (!mma) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (d <= 48) err = launch_mma<48, 64, 64>(a);
-  else if (d <= 80) err = launch_mma<80, 32, 64>(a);
-  else err = launch_mma<160, 16, 32>(a);
-  return static_cast<int>(err);
+  const bool ok = dtype == 1 && d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv) && aligned16(delta);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_tma(a));
+}
+
+// The bf16 path's plan for a shape, for holding attention_plan() to it:
+// out = {padded D, q rows a dK/dV tile, dK/dV consumer warpgroups, dK/dV
+// splits, keys a dQ tile, dQ consumer warpgroups, padded Sq, dK/dV shared
+// memory, dQ shared memory}; returns the workspace bytes.
+long long madm_flash_attention_bwd_plan(int b, int sq, int sk, int h, int d, int* out) {
+  const BwdPlan p = bwd_plan(b, sq, sk, h, d);
+  int sm[2];
+  plan_smem(p, sm);
+  const int v[9] = {p.dn, p.bq_kv, p.nwg_kv, p.nsplit, p.bk_q, p.nwg_q, p.sqp, sm[0], sm[1]};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  return p.bytes;
 }
 
 }  // extern "C"

@@ -10,7 +10,11 @@ the hand-written kernels ``csrc/flash_attention.cu`` (which replaces
 raises.  When a gradient is needed, K1 also writes the fp32 row
 log-sum-exp that K3 recomputes the probabilities from; eval passes skip it.
 ``flash_attention.launches`` and ``flash_attention_backward.launches`` count
-kernel launches.
+kernel launches.  ``forward_plan`` and ``backward_plan`` state, as pure
+functions of shape, strides and dtype, how the two kernels launch (body,
+tiles, grids, shared memory, the dK/dV split, K3's workspace) and raise for
+bf16 input that their TMA bodies cannot address; the wrappers go by them,
+and ``split_dkdv_reference`` is the plain form of K3's split dK/dV sum.
 
 The packed-head path (``packed_attention``) is the same function for the
 self-attentions that ``pack_group`` picks when packing is on
@@ -26,8 +30,11 @@ saved for it.  ``packed_attention.launches`` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -84,33 +91,237 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention needs a unit-stride head dim")
 
 
+# ------------------------------------------------------------ launch plans
+SM_COUNT = 132          # H100 SXM
+SMEM_LIMIT = 232_448    # dynamic shared memory a block may use on Hopper
+
+
+@dataclass(frozen=True)
+class Launch:
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int  # dynamic shared-memory bytes
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """How K1 or K3 runs a call: ``body`` "tma_wgmma" (bf16) or "simt"
+    (float32); ``dn`` the head dim padded for the tensor cores; ``bq`` and
+    ``bk`` the query rows and keys of a block's tiles (for K3, those of the
+    dK/dV kernel; ``bk_dq``/``bq_dq`` those of the dQ kernel); ``warpgroups``
+    the consumer warpgroups of the main kernel and ``split_d`` whether they
+    share rows and split D (the D=512 VAE attention); ``nsplit`` the splits
+    of K3's query loop; ``launches`` every kernel launched, in order;
+    ``workspace_bytes`` K3's scratch (its ``delta`` argument)."""
+    kernel: str
+    body: str
+    heads: int
+    dn: int
+    bq: int
+    bk: int
+    warpgroups: int = 1
+    split_d: bool = False
+    stages: int = 2
+    nsplit: int = 1
+    bq_dq: int = 0
+    bk_dq: int = 0
+    sqp: int = 0
+    launches: Tuple[Launch, ...] = ()
+    workspace_bytes: int = 0
+
+    @property
+    def fills_card(self) -> bool:
+        """Every launch but the small prep and reduction runs >= SM_COUNT blocks."""
+        return all(l.blocks >= SM_COUNT for l in self.launches if l.kernel not in ("bwd_prep", "dkdv_reduce"))
+
+    @property
+    def score_copies(self) -> int:
+        """How many blocks of the main kernel compute each (query, key) score:
+        its grid's y extent over the heads (a kernel that split D's output
+        columns over blocks would recompute the scores in each)."""
+        return self.launches[0 if self.kernel == "K1" else 1].grid[1] // self.heads
+
+
+def _tma_checks(name: str, d: int, h: int, tensors: Sequence[Tuple[int, Tuple[int, int, int]]],
+                batch: int) -> None:
+    """Raise unless TMA can address every bf16 tensor: D % 8 == 0, 16-byte
+    aligned bases, sequence (and, for B > 1, batch) strides of a multiple of
+    16 bytes, and heads side by side or a head stride of a multiple of 16
+    bytes.  ``tensors`` holds (base address, (batch, seq, head) element
+    strides) of each."""
+    if d % 8:
+        raise ValueError(f"{name}: bf16 needs a head dim divisible by 8 (got {d})")
+    for ptr, (sb, ss, sh) in tensors:
+        if ptr % 16:
+            raise ValueError(f"{name}: bf16 tensors need 16-byte aligned storage (base {ptr:#x})")
+        strides = [ss] + ([sb] if batch > 1 else []) + ([] if sh == d or h == 1 else [sh])
+        if any((2 * st) % 16 for st in strides):
+            raise ValueError(f"{name}: bf16 strides must be multiples of 16 bytes, got "
+                             f"(batch, seq, head) = {(sb, ss, sh)} elements")
+
+
+def _pad_dn(d: int) -> int:
+    return 48 if d <= 48 else 80 if d <= 80 else 160 if d <= 160 else 512
+
+
+def _fills(sq: int, h: int, b: int) -> bool:
+    """Whether 128-row q tiles (two consumer warpgroups a block) still give
+    SM_COUNT blocks; else a block takes 64 rows, so that more blocks run."""
+    return -(-sq // 128) * h * b >= SM_COUNT
+
+
+def _chunks(dn: int) -> int:
+    return -(-dn // 64)
+
+
+def forward_plan(b: int, sq: int, sk: int, h: int, d: int, dtype: torch.dtype,
+                 tensors: Sequence[Tuple[int, Tuple[int, int, int]]] = ()) -> AttentionPlan:
+    """K1's plan (``madm_flash_attention_fwd_plan`` in csrc/flash_attention.cu
+    makes the same choice): bf16 runs the TMA body, raising for tensors TMA
+    cannot address (``tensors``: (base address, (batch, seq, head) strides)
+    of q, k, v); float32 runs the SIMT body."""
+    if dtype == torch.float32:
+        dpad = next(x for x in (48, 64, 80, 128, 160, 512) if d <= x)
+        bq, bk = (32, 32) if dpad == 512 else (64, 64 if dpad <= 80 else 32)
+        smem = 4 * (bq * (dpad + 1) + bk * (dpad + 1) + bk * dpad + bq * (bk + 1))
+        return AttentionPlan("K1", "simt", h, dpad, bq, bk, launches=(
+            Launch("flash_fwd_simt", (-(-sq // bq), h, b), 256, smem),))
+    _tma_checks("flash_attention", d, h, tensors, b)
+    dn = _pad_dn(d)
+    split_d = dn == 512
+    bk = 64 if split_d else 80 if sk <= 80 else 64 if dn == 160 else 128
+    nwg = 2 if split_d or _fills(sq, h, b) else 1
+    stages = 1 if split_d else 2
+    bq = 64 if split_d else 64 * nwg
+    nch = _chunks(dn)
+    smem = (1024 + nch * bq * 128 + 2 * stages * nch * bk * 128 + (nwg * 64 * bk * 4 if split_d else 0)
+            + 8 * (1 + 4 * stages))
+    return AttentionPlan("K1", "tma_wgmma", h, dn, bq, bk, nwg, split_d, stages, launches=(
+        Launch("flash_fwd_tma", (-(-sq // bq), h, b), 128 * nwg + 32, smem),))
+
+
+def backward_plan(b: int, sq: int, sk: int, h: int, d: int, dtype: torch.dtype,
+                  ptrs: Sequence[int] = ()) -> AttentionPlan:
+    """K3's plan for contiguous [B, S, H, D] tensors at addresses ``ptrs``
+    (``madm_flash_attention_bwd_plan`` in csrc/flash_attention_bwd.cu makes
+    the same choice).  bf16: the prep kernel, the dK/dV kernel over 128-key
+    tiles (64 at D=160), its query loop split until SM_COUNT blocks run (at least two q
+    tiles a split; fp32 partials, then a reduction in split order), and the
+    dQ kernel; float32: the SIMT body."""
+    if dtype == torch.float32:
+        n = b * sq * h
+        smem = 4 * (2 * 32 * 161 * 2 + 2 * 32 * 33 + 2 * 32)
+        return AttentionPlan("K3", "simt", h, 160, 32, 32, launches=(
+            Launch("delta", (-(-n // 8), 1, 1), 256, 0),
+            Launch("dkdv_simt", (-(-sk // 32), h, b), 256, smem),
+            Launch("dq_simt", (-(-sq // 32), h, b), 256, smem)), workspace_bytes=4 * b * h * sq)
+    rq = h * d
+    _tma_checks("flash_attention_backward", d, h, [(p, (rq * sq, rq, d)) for p in ptrs], b)
+    dn = _pad_dn(d)
+    # tiles that keep each consumer warpgroup within ptxas's 168 registers
+    bq = 64 if dn == 48 else 32
+    nwg = 1 if dn == 160 else 2
+    bkv = 64 * nwg
+    nkt, nqt = -(-sk // bkv), -(-sq // bq)
+    blocks = nkt * h * b
+    nsplit = 1 if blocks >= SM_COUNT else max(1, min(-(-SM_COUNT // blocks), nqt // 2))
+    bk_dq = 80 if sk <= 80 else 64
+    nwg_dq = 2 if _fills(sq, h, b) else 1
+    sqp = -(-sq // 128) * 128
+    nch = _chunks(dn)
+    stage = -(-(3 * nch * bq * 128 + 2 * bq * 4) // 1024) * 1024
+    smem_kv = 1024 + 2 * nch * bkv * 128 + 2 * stage + 8 * 5
+    smem_q = 1024 + 2 * nch * 64 * nwg_dq * 128 + 4 * nch * bk_dq * 128 + 8 * 5
+    rows = b * h * sqp
+    part = b * sk * h * d * 4 if nsplit > 1 else 0
+    off_dkp = -(-(8 * rows + 2 * b * sq * h * d) // 256) * 256
+    launches = [Launch("bwd_prep", (-(-rows // 8), 1, 1), 256, 0),
+                Launch("dkdv_tma", (nkt, h, b * nsplit), 128 * nwg + 32, smem_kv)]
+    if nsplit > 1:
+        launches.append(Launch("dkdv_reduce", (min(-(-b * sk * h * d // 256), 4 * SM_COUNT), 1, 1), 256, 0))
+    launches.append(Launch("dq_tma", (-(-sq // (64 * nwg_dq)), h, b), 128 * nwg_dq + 32, smem_q))
+    return AttentionPlan("K3", "tma_wgmma", h, dn, bq, bkv, nwg, False, 2, nsplit, 64 * nwg_dq, bk_dq, sqp,
+                         tuple(launches), off_dkp + 2 * nsplit * part)
+
+
+_backward_plan = functools.lru_cache(maxsize=256)(backward_plan)  # by shape and dtype alone
+
+
+def split_dkdv_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: torch.Tensor,
+                         scale: float, nsplit: int, bq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in fp32 as K3's split dK/dV kernel forms them: the q tiles of
+    ``bq`` rows are cut into ``nsplit`` contiguous runs as the kernel's grid
+    does, each run's partial sums are taken alone, and the partials are
+    added in split order, as ``dkdv_reduce_kernel`` adds them."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    nqt = -(-q.shape[1] // bq)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for sp in range(nsplit):
+        r0, r1 = sp * nqt // nsplit * bq, (sp + 1) * nqt // nsplit * bq
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds[:, :, r0:r1], qf[:, r0:r1])
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", p[:, :, r0:r1], gf[:, r0:r1])
+    return dk * scale, dv
+
+
+def _bind(lib_name: str, fn_name: str, argtypes, restype=ctypes.c_int):
+    """The library of ``csrc/<lib_name>.cu`` and its function ``fn_name``,
+    typed once (retyping a ctypes function on every call costs host time)."""
+    lib = kernels.load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib, fn
+
+
+def _on_device(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (the kernels
+    launch on the current device and its current stream); no context switch
+    where it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+_FWD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+             + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
+
+
 def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             scale: float, with_lse: bool = True,
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel K1 on CUDA tensors (raises for any other): (o, lse), lse the
     fp32 row log-sum-exp [B, H, Sq] of the scaled scores, or None unless
-    ``with_lse``."""
+    ``with_lse``.  bf16 tensors must be what ``forward_plan`` takes."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    if q.dtype == torch.bfloat16:
+        _tma_checks("flash_attention", d, h, [(t.data_ptr(), t.stride()[:3]) for t in (q, k, v)], b)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:
         return o, lse
-    lib = kernels.load("flash_attention")
-    fn = lib.madm_flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
-    strides = [t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2)]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    lib, fn = _bind("flash_attention", "madm_flash_attention_fwd", _FWD_ARGS)
+    with _on_device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(), b, sq, sk, h, d, *strides,
-                 float(scale), stream)
+                 None if lse is None else lse.data_ptr(), b, sq, sk, h, d,
+                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                 float(scale), torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, err, "flash_attention launch")
     flash_attention.launches += 1
     return o, lse
+
+
+_BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,8 +330,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) for the output gradient ``g`` of ``o = attention(q, k, v)``.
     CPU tensors run ``attention_backward_reference`` (``o`` and ``lse`` are
     not needed); CUDA tensors launch kernel K3 with the forward's ``o`` and
-    fp32 ``lse`` [B, H, Sq]: D <= 160, and in bf16 D % 8 == 0 with 16-byte
-    aligned storage (the tensor-core body), else it raises."""
+    fp32 ``lse`` [B, H, Sq]: D <= 160, and in bf16 what ``backward_plan``
+    takes (D % 8 == 0, 16-byte aligned storage), else it raises."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, g, scale)
     _check(q, k, v)
@@ -135,21 +346,17 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, lse = (t.contiguous() for t in (q, k, v, o, lse))
     g = g.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    if q.dtype == torch.bfloat16 and (d % 8 or any(t.data_ptr() % 16 for t in (q, k, v, g, dq, dk, dv))):
-        raise ValueError("flash_attention_backward: bf16 needs a head dim divisible by 8 and "
-                         f"16-byte aligned tensors (head dim {d})")
+    plan = _backward_plan(b, sq, sk, h, d, q.dtype)
+    if q.dtype == torch.bfloat16:
+        backward_plan(b, sq, sk, h, d, q.dtype, [t.data_ptr() for t in (q, k, v, g, dq, dk, dv)])
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = kernels.load("flash_attention_bwd")
-    fn = lib.madm_flash_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    # K3's workspace: the fp32 delta [B, H, Sq], or the bf16 body's scratch
+    delta = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=q.device)
+    lib, fn = _bind("flash_attention_bwd", "madm_flash_attention_bwd", _BWD_ARGS)
+    with _on_device(q.device):
         err = fn(_DTYPES[q.dtype], *(t.data_ptr() for t in (q, k, v, o, g, lse, delta, dq, dk, dv)),
-                 b, sq, sk, h, d, float(scale), stream)
+                 b, sq, sk, h, d, float(scale), torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, err, "flash_attention_backward launch")
     flash_attention_backward.launches += 1
     return dq, dk, dv

@@ -14,7 +14,10 @@ and for one more pass:
   UNet, VAE decoder and projections, summed over their calls; the head and
   the stitching are the rest of the pass);
 - device time per kernel and per kernel family from ``torch.profiler``, and
-  the device's idle share (1 - kernel time / pass time).
+  the device's idle share (1 - kernel time / pass time);
+and over ``PASSES`` more passes, the host ms a pass: to enqueue it (no
+synchronize between passes) and inside the attention calls
+(``ops.attention.flash_attention``, K1 and its wrapper).
 Needs a GPU; prints one JSON object and writes it to ``--out``.
 """
 
@@ -35,7 +38,7 @@ from .models.madm import MADM, MADMConfig, init_random_
 PASSES = 20  # timed back to back for the mean pass time
 FAMILIES = (  # first match wins; lower-case substrings of kernel names
     ("flash_attention (K1)", ("flash_fwd",)),
-    ("flash_attention_backward (K3)", ("dkdv_", "dq_mma", "dq_simt", "delta_kernel")),
+    ("flash_attention_backward (K3)", ("dkdv_", "dq_tma", "dq_simt", "delta_kernel", "bwd_prep")),
     ("aspp_fused (K2)", ("aspp_fused",)),
     ("dw_branches (K6)", ("dw_branches",)),
     ("matmul_argmax (K7)", ("matmul_argmax",)),
@@ -127,6 +130,7 @@ def main() -> None:
     stages["head, stitching and the rest"] = pass_ms - sum(stages.values())
 
     kernel_ms, fam, top = kernel_breakdown(run)
+    enqueue_ms, attention_ms = host_breakdown(run)
     result = {
         "card": card_line(),
         "batch": args.batch,
@@ -139,10 +143,38 @@ def main() -> None:
         "stages_ms": stages,
         "profiled_kernel_ms": kernel_ms,
         "device_idle_share": (1.0 - kernel_ms / pass_ms) if kernel_ms else None,
+        "host_enqueue_ms": enqueue_ms,
+        "host_attention_ms": attention_ms,
         "families_ms": fam,
         "top_kernels": top,
     }
     write_json(result, args.out)
+
+
+def host_breakdown(fn):
+    """Host ms a pass over ``PASSES`` passes of ``fn``, enqueued back to back:
+    in all, and inside ``ops.attention.flash_attention``."""
+    from .ops import attention
+
+    inner, spent = attention.flash_attention, [0.0]
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    attention.flash_attention = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PASSES):
+            fn()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        attention.flash_attention = inner
+    return enqueue * 1e3 / PASSES, spent[0] * 1e3 / PASSES
 
 
 def kernel_breakdown(fn, n_top: int = 25):
