@@ -6,12 +6,15 @@
 Phases (each prints its lines; any failure raises and exits nonzero):
 1. card: name and power limit;
 2. build: the CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
-3. what ptxas made of K1's and K3's kernels (registers, shared memory,
-   spills), their HGMMA (wgmma) and UTMALDG (TMA load) SASS counts, and the
-   host cost of a tensor map and of a K1 call; then kernels against their
-   plain twins in bf16 at the main path's shapes (K1 and K2 at the eval
-   pass's, K3 at the train step's, K1 and K3 also at B=2 for Sq=4096, each
-   K1/K3 row with its launch plan held to the C library's; K4 and K5 at the
+3. what ptxas made of K1's, K3's and K2's kernels (registers, shared
+   memory, spills, wgmma ptxas serialized), their HGMMA (wgmma), UTMALDG
+   (TMA load) and HMMA SASS counts, and the host cost of a tensor map and of
+   a K1 call; then kernels against their plain twins in bf16 at the main
+   path's shapes (K1 at the eval pass's, K2 at the eval crop for B=1 and 2
+   and at the slide head's W=1024, with ragged shapes checked too and, as a
+   yardstick for its product part, the four products alone in
+   torch.matmul, K3 at the train step's, K1 and K3 also at B=2 for Sq=4096,
+   each K1/K2/K3 row with its launch plan held to the C library's; K4 and K5 at the
    packed self-attention's [B,4096,8,40] for B=1 and 2, K6 and K7 at the
    'full' eval head's): max abs error with its tolerance, kernel ms, twin
    ms, library ms where one PyTorch call computes the same function (SDPA
@@ -79,6 +82,8 @@ from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_par
 from madm_torch.ops.aspp import (
     aspp_fused,
     aspp_fused_reference,
+    aspp_plan,
+    c_plan,
     dw_branches,
     dw_branches_reference,
     matmul_argmax,
@@ -121,7 +126,11 @@ FLASH_SHAPES = (
 FLASH_CASES = tuple((1, *s) for s in FLASH_SHAPES) + tuple((2, *s) for s in FLASH_SHAPES if s[0] == 4096)
 # [B, S, H, D] of the packed self-attentions (the five at S=4096 of a 512x512 pass)
 PACKED_SHAPES = ((1, 4096, 8, 40), (2, 4096, 8, 40))
-ASPP_SHAPES = ((1, 512, 512), (1, 512, 1024))  # eval crop; sliding-window stitched width
+# eval crop at B=1 and B=2 (the B=2 'aspp' pass calls K2 once); sliding-window stitched width
+ASPP_SHAPES = ((1, 512, 512), (2, 512, 512), (1, 512, 1024))
+# ragged shapes K2's bf16 body takes (B, H, W, EC, embeds, dilations): halo
+# rows and columns past every border, a last strip and row pair cut short
+ASPP_RAGGED = ((1, 7, 100, 64, 2, (24, 5, 2)), (2, 37, 65, 128, 1, (1, 2, 3)))
 DW_DILATIONS = (6, 12, 18)  # the 'full' head: one K6 call a dilation over the 1024-channel concat
 COUNTERS = {"K1": flash_attention, "K2": aspp_fused, "K3": flash_attention_backward,
             "K4": packed_attention, "K5": packed_attention_backward,
@@ -277,21 +286,25 @@ def check_flash_bwd(gen):
 
 
 def report_builds(q):
-    """What ptxas made of K1's and K3's bf16 kernels (registers, shared
-    memory, spills), the SASS they hold (HGMMA = wgmma, UTMALDG = TMA tensor
-    loads, HMMA = mma.sync), and the host cost of encoding a tensor map."""
-    for name in ("flash_attention", "flash_attention_bwd"):
+    """What ptxas made of K1's, K3's and K2's bf16 kernels (registers, shared
+    memory, spills, and any wgmma ptxas serialized), the SASS they hold
+    (HGMMA = wgmma, UTMALDG = TMA tensor loads, HMMA = mma.sync), and the
+    host cost of encoding a tensor map."""
+    for name in ("flash_attention", "flash_attention_bwd", "aspp_fused"):
         for fn, regs, smem, st, ld in kernels.ptxas_report(name):
             if any(x in fn for x in ("tma", "bwd_prep", "reduce")):
                 log(f"ptxas {name}: {fn}: {regs} registers, {smem} bytes static smem, "
                     f"spill stores {st} B, spill loads {ld} B")
+        for line in kernels.BUILD_LOGS.get(name, "").splitlines():
+            if "wgmma" in line.lower():
+                log(f"ptxas {name}: {line.strip()}")
         try:
             counts = kernels.sass_counts(name, ("HGMMA", "UTMALDG", "HMMA"))
             log(f"SASS of lib{name}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
         except (FileNotFoundError, subprocess.CalledProcessError) as e:
             log(f"SASS of lib{name}: not counted ({e})")
-        if name == "flash_attention" and not kernels.ptxas_report(name):
-            log("ptxas flash_attention: no report (library built by an earlier process)")
+        if name in ("flash_attention", "aspp_fused") and not kernels.ptxas_report(name):
+            log(f"ptxas {name}: no report (library built by an earlier process)")
     fn = kernels.load("flash_attention").madm_tensor_map_encode_ns
     fn.restype = ctypes.c_double
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 5
@@ -366,18 +379,35 @@ def check_packed(gen):
     return rows
 
 
-def aspp_inputs(gen, b, h, w):
+def aspp_inputs(gen, b, h, w, ec=256, n=4):
     def f(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
 
-    embeds = [f(b, h, w, 256).bfloat16() for _ in range(4)]
-    args = (f(3, 3, 3, 1024, scale=0.1), f(3, 1024).abs() + 0.5, f(3, 1024, scale=0.1),
-            f(3, 1024, 256, scale=0.03).bfloat16(), f(3, 256).abs() + 0.5, f(3, 256),
-            f(1024, 256, scale=0.03).bfloat16(), f(256).abs() + 0.5, f(256))
+    c = ec * n
+    embeds = [f(b, h, w, ec).bfloat16() for _ in range(n)]
+    args = (f(3, 3, 3, c, scale=0.1), f(3, c).abs() + 0.5, f(3, c, scale=0.1),
+            f(3, c, 256, scale=0.03).bfloat16(), f(3, 256).abs() + 0.5, f(3, 256),
+            f(c, 256, scale=0.03).bfloat16(), f(256).abs() + 0.5, f(256))
     return embeds, args
 
 
+def aspp_plan_line(b, h, w):
+    """K2's Python launch plan at a bf16 shape, held to the one the C library
+    computes; returns a short description."""
+    plan = aspp_plan(b, h, w, 256, 4, (6, 12, 18), torch.bfloat16)
+    theirs = c_plan(b, h, w, 256, 4, (6, 12, 18), torch.bfloat16)
+    if plan.c_plan() != theirs:
+        raise AssertionError(f"K2 plan at {[b, h, w]}: Python {plan.c_plan()}, C {theirs}")
+    return (f"plan grid {plan.grid} x{plan.threads} smem {plan.smem}, tile {plan.tile_cols}x"
+            f"{plan.tile_rows} px, {plan.stages} stages of {plan.chunk} channels, strips {plan.strips} "
+            f"in groups of {plan.group}, row pairs {list(plan.row_pairs)}")
+
+
 def check_aspp(gen):
+    """K2 against its fp32 twin at the eval crop (B=1, 2) and the slide head's
+    W=1024, with its plan held to the C library's; beside it, as a yardstick
+    for the product part only (no single call computes K2), the four bf16
+    [B*H*W, 1024] x [1024, 256] products alone in torch.matmul."""
     rows = []
     for b, h, w in ASPP_SHAPES:
         embeds, args = aspp_inputs(gen, b, h, w)
@@ -386,18 +416,36 @@ def check_aspp(gen):
         ref = aspp_fused_reference(embeds, *args)
         err = (out.float() - ref.float()).abs().max().item()
         tol = 2.0 ** -6 * max(1.0, ref.float().abs().max().item())  # bf16 rounding of outputs and depthwise
+        del ref
         ms = cuda_ms(lambda: aspp_fused(embeds, *args), reps=5)
         plain = cuda_ms(lambda: aspp_fused_reference(embeds, *args), reps=3, warmup=1)
         pix = b * h * w
+        xcat = torch.cat(embeds, dim=-1).view(pix, 1024)
+        wts = [args[3][i] for i in range(3)] + [args[6]]
+        products = cuda_ms(lambda: [torch.matmul(xcat, wt) for wt in wts], reps=5)
+        del xcat
         nbytes = 2 * (4 * pix * 256 + pix * 1024 + 4 * 1024 * 256) + 4 * (3 * 9 * 1024 + 6 * 1024 + 8 * 256)
         bnd, by = bound_ms(nbytes, (3 * 9 * 2 + 4 * 2 * 256) * pix * 1024)
         row = dict(shape=[b, h, w, 4 * 256], max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                   bound_ms=bnd, bound_by=by)
+                   bound_ms=bnd, bound_by=by, products_alone_ms=products)
         log(f"K2 aspp_fused [B,H,W,C]=[{b},{h},{w},1024]: max_abs_err={err:.3e} (tol {tol:.3e}) "
-            f"ms={ms:.3f} plain_ms={plain:.3f} bound_ms={bnd:.4f} ({by})")
+            f"ms={ms:.4f} plain_ms={plain:.3f} bound_ms={bnd:.4f} ({by}); yardstick, not the "
+            f"library call: the 4 products alone in torch.matmul {products:.4f} ms; "
+            f"{aspp_plan_line(b, h, w)}")
         if not err <= tol:
             raise AssertionError(f"K2 at {row['shape']}: error {err} over tolerance {tol}")
         rows.append(row)
+    for b, h, w, ec, n, dils in ASPP_RAGGED:
+        embeds, args = aspp_inputs(gen, b, h, w, ec, n)
+        out = aspp_fused(embeds, *args, dils)
+        torch.cuda.synchronize()
+        ref = aspp_fused_reference(embeds, *args, dils).float()
+        err = (out.float() - ref).abs().max().item()
+        tol = 2.0 ** -6 * max(1.0, ref.abs().max().item())
+        log(f"K2 aspp_fused ragged [B,H,W]=[{b},{h},{w}], {n} x {ec} channels, dilations {dils}: "
+            f"max_abs_err={err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"K2 at ragged {[b, h, w, ec, n, dils]}: error {err} over tolerance {tol}")
     return rows
 
 

@@ -9,34 +9,90 @@
 // where x is the channel concat of the embeds (never built), the depthwise BN
 // scale is folded into w_i in fp32 by the caller, taps outside the image read
 // zero, and the depthwise output is rounded to the working type T before the
-// pointwise product, as on the TPU.
+// pointwise product, as on the TPU.  The 1024-channel concat and the
+// depthwise outputs never reach device memory.
 //
 // Bound on the H100: ~564 GFLOP per 512x512 image, almost all of it in the
-// four C x PC pointwise products, against ~1 GB of embed reads and output
-// writes: it is bound by operations.  The TPU kernel fed its matrix unit from
-// a VMEM ring of rows; here each block owns one row segment of TP pixels and
-// one branch, walks the C input channels in chunks of KC, builds that
-// chunk's depthwise output (or, for branch 0, the raw embed values) straight
-// into shared memory from global/L2 reads, stages the matching KC x PC slice
-// of the pointwise weights beside it, and accumulates the TP x PC product in
-// fp32 registers.  The 1024-channel concat and the depthwise outputs never
-// reach device memory.  The tiling does not depend on W, so any width
-// (including the sliding-window path's W=1024) takes the same kernel.
+// four C x PC pointwise products, against ~1.07 GB of embed reads and output
+// writes: it is bound by operations, 0.571 ms at 989 TFLOP/s.
 //
-// bf16 (the model's type) streams each chunk's three input rows (y-d, y,
-// y+d, with a d-column halo) and its weight slice into shared memory with
-// 16-byte cp.async copies, double-buffered so the next chunk arrives while
-// this one computes, takes the depthwise taps from shared memory, and runs
-// the product on the tensor cores through
-// WMMA 16x16x16 bf16 -> fp32 fragments: 8 warps, each a 32 pixel x 64 channel
-// tile.  float32 (the parity path) gathers the taps from global memory and
-// runs the product as SIMT fp32 FMA, each thread an 8 pixel x 8 channel tile,
-// so that it keeps full fp32 precision.
+// What limits a Hopper body is the traffic that feeds the tensor cores, not
+// the FLOPs.  Per SM and clock the tensor cores do ~2,048 bf16 MAC and
+// shared memory gives 128 bytes.  A wgmma m64n256k16 whose A comes from
+// registers reads its 8 KB of B from shared memory for 262 K MAC: 64 B a
+// clock at full rate, half the budget, leaving ~8 B per depthwise output
+// element.  A 9-tap gather of bf16 costs 18 B per element, 22 B if the
+// output goes back through shared memory.  And every block streams its
+// branch's C x PC weights (512 KB) and its embed rows through L2.
+//
+// The bf16 body (the model's type), with what it does about that:
+// - A block computes 64 pixels of two image rows (y and y+d) x all 256
+//   output channels of one branch, in two consumer warpgroups of 64 pixel
+//   rows each (one m64n256 fp32 accumulator, 128 registers a thread, per
+//   warpgroup).  256 threads: ptxas may use 255 registers a thread and uses
+//   199, with no spills.  No producer warp: one consumer thread issues the
+//   loads.
+// - The C input channels stream in chunks of 64 through a ring of 2 stages
+//   (93 KB each, 187 KB in all) under mbarriers.  A stage holds the halo
+//   rows y-d, y, y+d, y+2d of the chunk, each a TMA box [64 channels]
+//   [64 + 2d pixels] of a rank-4 map (EC, W, H, B) of the embed, 128-byte
+//   swizzled; the chunk's [64][256] weights as four [64][64] boxes, read
+//   MN-major by wgmma as TMA wrote them; and, for the dilated branches, the
+//   chunk's 9 x 64 fp32 taps and its 64 biases by bulk copy.  Coordinates
+//   outside the image (x < 0, x >= W, rows above 0 or below H-1) read TMA's
+//   zeros: that is the conv's zero padding, so the inner loop has no bounds
+//   check.
+// - aspp_0 (1x1): A is the embed row as TMA put it (rows y and y+1, one a
+//   warpgroup): wgmma with both operands in shared memory, no SIMT work.
+// - The dilated branches: each thread computes the depthwise outputs of
+//   exactly the elements of its own m64k16 A fragment, straight into
+//   registers, and they are the register A operand of the wgmma: the
+//   depthwise output never touches shared memory.  The fragment's two rows
+//   of a thread are the pixels (y, x) and (y+d, x), which share the halo
+//   rows y and y+d: 12 loads of a channel pair for 2 pixels instead of 18,
+//   12 B per output element.  Lanes g = 0..7 of a warp take 8 consecutive
+//   columns, so their 32-bit reads of the swizzled rows hit 32 distinct
+//   banks.  The taps of a thread's 4 channels are read once per thread and
+//   k-step (9 x 2 float2), not once per pixel.  A k-step's depthwise runs
+//   while the previous k-step's wgmma is in flight (two A fragments, at most
+//   one group outstanding), and a chunk's stage goes back for its refill as
+//   the next chunk starts, a chunk of work before the refill is needed.
+// - Block order: the branch is the fastest block index, so the four
+//   branches of a tile run together; tiles walk all row pairs of a group of
+//   column strips (2 at 512 and 1024 columns) before the next group, the
+//   group as wide as keeps the live halo rows within ~30 MB of the 50 MB L2.
+// - Epilogue: BN scale and shift and the ReLU in fp32 on the accumulator,
+//   rounded to bf16 and stored from registers (two channels a store);
+//   columns past W and a second row past H are not stored.
+// Budget per 64-channel chunk of a dilated block (2 x 64 pixels): the tensor
+// cores need 1,024 clocks; shared memory serves B (512 wavefronts of 128
+// bytes), the halo reads (768) and the taps (576), and TMA writes ~80 KB
+// into it (32 KB of weights, 39-51 KB of halo rows, 2.5 KB of taps), all of
+// it from L2: ~9.6 GB from L2 for a 512x512 image.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py and python -m
+// madm_torch.profile_aspp --ablate): 2.48-2.62 ms at [1,512,512,1024], 22-23%
+// of the bound (the WMMA body before it took 6.44 ms).  The aspp_0 blocks
+// alone take 0.48 ms, the dilated ones alone 2.12: 1.50 without their
+// depthwise, 1.51 without their products, 1.07 for the depthwise with no
+// products and no weight or halo loads.  So the SIMT depthwise and the
+// load-and-product path (bound by the latency and rate of the loads from
+// L2, not by the tensor cores) each take about half, and overlap only in
+// part: that overlap is what a next design has to win.  Tried in short
+// calls and not kept, each slower or no faster: clusters of two blocks
+// sharing the weights and two halo rows by TMA multicast; persistent blocks
+// (ptxas then serialized the wgmmas); 32-channel stages in a ring of 4; the
+// depthwise output through shared memory as an SS operand.
+//
+// float32 (the parity path) gathers the taps from global memory and runs the
+// product as SIMT fp32 FMA, each thread an 8 pixel x 8 channel tile of a
+// 64-pixel row segment, so that it keeps full fp32 precision.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -179,158 +235,352 @@ __global__ void __launch_bounds__(kThreads) aspp_fused_simt_kernel(Params p) {
   }
 }
 
-// ------------------------------------------------------- bfloat16 (WMMA)
-constexpr int ALDB = KC + 8;  // bf16 row strides: multiples of 8, rows 32-byte aligned
-constexpr int BLDB = PC + 8;
-constexpr int XCOLS = TP + 2 * kMaxDilation;  // halo columns of one input row
-constexpr int XSIZE = 3 * XCOLS * KC;         // [row y-d, y, y+d][TP + 2d columns][KC]
+// ------------------------------------------------- bfloat16: TMA + wgmma
+using namespace hopper;
+typedef __nv_bfloat16 bf16;
 
-// Shared memory of the bf16 kernel: two stages of (halo rows, weight slice)
-// so that chunk c+1 streams in (cp.async) while chunk c computes.  The halo
-// rows are dead by the epilogue, which reuses their space for staging.
-struct WmmaSmem {
-  union {
-    __nv_bfloat16 X[2][XSIZE];
-    float stage[8][16 * 16];  // per-warp epilogue tile
-  };
-  __nv_bfloat16 B[2][KC * BLDB];  // [KC][PC] weight slices
-  __nv_bfloat16 A[TP * ALDB];     // [TP][KC] depthwise output of the chunk
+constexpr int TC = 64;   // pixels of a tile row (one strip)
+constexpr int KCB = 64;  // input channels a stage: one 128-byte swizzled row a pixel
+constexpr int STAGES = 2;
+constexpr int SLOT_BYTES = (TC + 2 * kMaxDilation) * 128;  // one halo row; a multiple of 1024
+constexpr int X_BYTES = 4 * SLOT_BYTES;                     // halo rows y-d, y, y+d, y+2d
+constexpr int W_BYTES = KCB * PC * 2;                       // [64][256] weights, four [64][64] boxes
+constexpr int TAP_BYTES = 10 * KCB * 4;                     // 9 fp32 taps and the bias a channel
+constexpr int STAGE_BYTES = (X_BYTES + W_BYTES + TAP_BYTES + 1023) / 1024 * 1024;
+constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+constexpr int TMA_SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;  // + 1024 to align the base
+constexpr int TMA_THREADS = 256;                            // two consumer warpgroups
+constexpr int SM_COUNT = 132;                               // H100 SXM
+constexpr long long L2_BUDGET = 30ll << 20;                 // live halo rows, of the 50 MB L2
+static_assert(SLOT_BYTES % 1024 == 0 && (X_BYTES + W_BYTES) % 1024 == 0, "swizzle atoms");
+
+struct Maps {
+  CUtensorMap x[kMaxEmbeds][4];  // embed e as branch br reads it: boxes [64][64 + 2 d_br]
+  CUtensorMap pw;                // pw_w as a [3C][PC] matrix: boxes [64 rows][64 columns]
+  CUtensorMap a0;                // a0_w as [C][PC]
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(pred ? 16 : 0));  // src-size 0: the 16 bytes are zero-filled
+struct TmaArgs {
+  const float* dw_w;  // [3][3][3][C], BN scale folded
+  const float* dw_b;  // [3][C]
+  const float *pw_s, *pw_b, *a0_s, *a0_b;
+  bf16* out;  // [B][H][W][4*PC]
+  int H, W, EC, C, nch;
+  int pair[4];  // row distance of a tile's two rows: 1 for aspp_0, the dilation for the others
+  int nk[4];    // row pairs (tiles down the image) of each branch
+  int nk_max, strips, group;
+};
+
+// The launch plan of the bf16 body; aspp_plan() in madm_torch/ops/aspp.py
+// computes the same.  A branch pairs rows y and y+e (e = pair[br]) for the
+// y with floor(y / e) even: row_pairs of them cover the H rows, each once
+// (the second row of the last pairs may lie past H).  Column strips of TC
+// pixels; `group` strips walk down the image together.
+struct TmaPlan {
+  int nk[4], nk_max, strips, group;
+  long long gx;  // blocks along x: 4 branches x nk_max x strips
+};
+
+inline int row_pairs(int h, int e) { return h / (2 * e) * e + (h % (2 * e) < e ? h % (2 * e) : e); }
+
+inline TmaPlan tma_plan(int h, int w, int c, const int pair[4]) {
+  TmaPlan p{};
+  p.nk_max = 0;
+  int dmax = 0;
+  for (int i = 0; i < 4; ++i) {
+    p.nk[i] = row_pairs(h, pair[i]);
+    p.nk_max = p.nk[i] > p.nk_max ? p.nk[i] : p.nk_max;
+    if (i > 0 && pair[i] > dmax) dmax = pair[i];
+  }
+  p.strips = (w + TC - 1) / TC;
+  // the widest group of strips whose live halo rows fit the budget: 3d + 2
+  // rows of a tile plus the rows that the blocks in flight span
+  p.group = 1;
+  for (int g = 16; g > 1; g /= 2) {
+    if (g > p.strips) continue;
+    const long long rows = 3 * dmax + 2 + 2 * ((SM_COUNT + 4 * g - 1) / (4 * g));
+    if (rows * (TC * g + 2 * dmax) * c * 2 <= L2_BUDGET) {
+      p.group = g;
+      break;
+    }
+  }
+  p.gx = 4ll * p.nk_max * p.strips;
+  return p;
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-__global__ void __launch_bounds__(kThreads, 2) aspp_fused_wmma_kernel(Params p) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  WmmaSmem& sm = *reinterpret_cast<WmmaSmem*>(smem_raw);
+// Which tile this block computes: the branch is the fastest block index, then
+// the strip within its group, then the row pair, then the group.  False for
+// a block past its branch's row pairs (branches differ in them by < e).
+__device__ __forceinline__ bool tma_tile(const TmaArgs& a, int& br, int& k, int& strip) {
+  br = blockIdx.x & 3;
+  const int rest = blockIdx.x >> 2;
+  const int per = a.nk_max * a.group, full = a.strips / a.group;
+  if (rest < full * per) {
+    const int grp = rest / per, r = rest - grp * per;
+    k = r / a.group;
+    strip = grp * a.group + (r - k * a.group);
+  } else {  // the last, narrower group
+    const int rem = a.strips - full * a.group, r = rest - full * per;
+    k = r / rem;
+    strip = full * a.group + (r - k * rem);
+  }
+  return k < a.nk[br];
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1;   // pixels 32*wm .. +32
-  const int wn = warp >> 1;  // channels 64*wn .. +64
-  const Tile t = block_tile(p);
-  const int d = t.branch == 0 ? 0 : t.dil;
-  const int nrows = t.branch == 0 ? 1 : 3;  // branch 0 needs only row y
-  const int ncols = TP + 2 * d;
-  const __nv_bfloat16* wsrc =
-      t.branch == 0 ? static_cast<const __nv_bfloat16*>(p.a0_w)
-                    : static_cast<const __nv_bfloat16*>(p.pw_w) + (size_t)(t.branch - 1) * p.C * PC;
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+aspp_fused_tma_kernel(const __grid_constant__ Maps maps, const __grid_constant__ TmaArgs a) {
+  int br, k, strip;
+  if (!tma_tile(a, br, k, strip)) return;
+  const int e = a.pair[br], d = br == 0 ? 0 : e;
+  const int y = (k / e) * 2 * e + k % e, x0 = strip * TC, b = blockIdx.y;
 
-  // queue chunk c0's input rows and weight slice into stage s (16-byte copies)
-  auto issue = [&](int c0, int s) {
-    const int e = c0 / p.EC;
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(p.embeds.p[e]) +
-                               (size_t)t.b * p.H * p.W * p.EC + (c0 - e * p.EC);
-    for (int v = tid; v < nrows * ncols * (KC / 8); v += kThreads) {
-      const int q8 = (v & 3) * 8, rc = v >> 2;
-      const int r = rc / ncols, c = rc - r * ncols;
-      const int row = nrows == 1 ? 1 : r;  // halo row index: 0 = y-d, 1 = y, 2 = y+d
-      const int yy = t.y + (row - 1) * d, xx = t.x0 - d + c;
-      const bool in = yy >= 0 && yy < p.H && xx >= 0 && xx < p.W;
-      cp_async16(&sm.X[s][(row * XCOLS + c) * KC + q8],
-                 in ? &src[((size_t)yy * p.W + xx) * p.EC + q8] : src, in);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 2);  // one arrival a warpgroup
     }
-#pragma unroll
-    for (int v = tid; v < KC * PC / 8; v += kThreads) {
-      const int row = v / (PC / 8), col = (v % (PC / 8)) * 8;
-      cp_async16(&sm.B[s][row * BLDB + col], &wsrc[(size_t)(c0 + row) * PC + col], true);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // chunk c (input channels 64c..64c+63) into stage s: halo rows, weights, taps
+  auto load = [&](int c, int s) {
+    unsigned char* st = sm + s * STAGE_BYTES;
+    const int ei = c * KCB / a.EC, ce = c * KCB - ei * a.EC;
+    const CUtensorMap* xm = &maps.x[ei][br];
+    const uint32_t xbytes = br == 0 ? 2 * TC * 128 : 4 * (TC + 2 * d) * 128;
+    mbar_expect_tx(full + s, xbytes + W_BYTES + (br ? TAP_BYTES : 0));
+    if (br == 0) {  // rows y and y+1 into slots 1 and 2
+      for (int r = 0; r < 2; ++r) tma_load(st + (1 + r) * SLOT_BYTES, xm, full + s, ce, x0, y + r, b, true);
+    } else {
+      for (int r = 0; r < 4; ++r)
+        tma_load(st + r * SLOT_BYTES, xm, full + s, ce, x0 - d, y + (r - 1) * d, b, true);
     }
-    cp_async_commit();
+    const CUtensorMap* wm = br == 0 ? &maps.a0 : &maps.pw;
+    const int row0 = (br == 0 ? 0 : (br - 1) * a.C) + c * KCB;
+    for (int j = 0; j < PC / 64; ++j) tma_load(st + X_BYTES + j * 8192, wm, full + s, 64 * j, row0, 0, 0, false);
+    if (br) {
+      const float* tw = a.dw_w + (size_t)(br - 1) * 9 * a.C + c * KCB;
+      for (int tap = 0; tap < 9; ++tap)
+        bulk_load(st + X_BYTES + W_BYTES + tap * 256, tw + (size_t)tap * a.C, 256, full + s);
+      bulk_load(st + X_BYTES + W_BYTES + 9 * 256, a.dw_b + (size_t)(br - 1) * a.C + c * KCB, 256, full + s);
+    }
+  };
+  // once every product that reads chunk c-1's stage is done: release that
+  // stage (both warpgroups), and refill it with chunk c+1
+  auto release = [&](int c) {
+    if (c == 0) return;
+    const int sp = (c - 1) & 1;
+    if (t == 0) mbar_arrive(empty + sp);
+    if (tid == 0 && c + 1 < a.nch) {
+      mbar_wait(empty + sp, ((c - 1) >> 1) & 1);
+      load(c + 1, sp);
+    }
+    __syncwarp();  // the warp reconverges before its next wgmma
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  if (tid == 0) {
+    load(0, 0);
+    if (a.nch > 1) load(1, 1);
+  }
 
-  issue(0, 0);
-  for (int c0 = 0, s = 0; c0 < p.C; c0 += KC, s ^= 1) {
-    __syncthreads();  // every warp is done with stage s^1 (chunk c0 - KC)
-    if (c0 + KC < p.C) {
-      issue(c0 + KC, s ^ 1);
-      cp_async_wait<1>();  // chunk c0 has landed; c0 + KC stays in flight
-    } else {
-      cp_async_wait<0>();
+  float acc[PC / 2];
+#pragma unroll
+  for (int i = 0; i < PC / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  // A fragments of two k-steps: one in the tensor cores, one being built.  A
+  // fragment is held live (fence_regs) until the wait that retires its wgmma,
+  // so that the next one is not built into the registers the tensor cores read
+  uint32_t af[2][4] = {};
+  // dilated branches: this thread's pixels are (y, x0 + col) and (y + d, x0 + col);
+  // tap column kx is box row col + kx*d of each halo row (the box starts at x0 - d)
+  const int col = 32 * wg + 8 * warp + g;
+  int xoff[3], xswz[3];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx) {
+    xoff[kx] = (col + kx * d) * 128 + 4 * tg;
+    xswz[kx] = ((col + kx * d) & 7) << 4;  // the 128-byte swizzle: 16-byte unit ^= row & 7
+  }
+
+  // one chunk loop a kind of branch: the wgmma chain on acc has no merging paths
+  if (br == 0) {
+    for (int c = 0; c < a.nch; ++c) {
+      const int s = c & 1;
+      mbar_wait(full + s, (c >> 1) & 1);
+      const unsigned char* st = sm + s * STAGE_BYTES;
+      const uint32_t wb = smem_addr(st + X_BYTES), xa = smem_addr(st + (1 + wg) * SLOT_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KCB / 16; ++ks)
+        wgmma_ss_mn<PC>(acc, desc(xa + ks * 32, 16), desc(wb + ks * 2048, 8192), c | ks);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous chunk's products are done
+      release(c);
     }
-    __syncthreads();
-
-    const __nv_bfloat16* a_src = &sm.X[s][XCOLS * KC];  // branch 0: row y, as is
-    int a_ld = KC;
-    if (t.branch != 0) {
-      // depthwise taps from shared memory: lane = channel, warp + 8n = pixel
-      const int cc = c0 + lane;
-      const float* tap_w = p.dw_w + (size_t)(t.branch - 1) * 9 * p.C + cc;
-      float w9[9];
+  } else {
+    for (int c = 0; c < a.nch; ++c) {
+      const int s = c & 1;
+      mbar_wait(full + s, (c >> 1) & 1);
+      const unsigned char* st = sm + s * STAGE_BYTES;
+      const uint32_t wb = smem_addr(st + X_BYTES);
+      // the previous chunk's last product is done, so its stage goes back
+      // now, a chunk of depthwise work before its refill is needed
+      wgmma_wait0();
+      release(c);
+      const float* taps = reinterpret_cast<const float*>(st + X_BYTES + W_BYTES) + 2 * tg;
 #pragma unroll
-      for (int k = 0; k < 9; ++k) w9[k] = tap_w[(size_t)k * p.C];
-      const float bias = p.dw_b[(size_t)(t.branch - 1) * p.C + cc];
-      const __nv_bfloat16* xs = sm.X[s];
+      for (int ks = 0; ks < KCB / 16; ++ks) {
+        // the depthwise outputs of this thread's fragment: pixels (y, x) and
+        // (y + d, x), channels 16ks + {2tg, 2tg+1} (lo) and {2tg+8, 2tg+9} (hi)
+        float2 wlo[9], whi[9];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int px = warp + 8 * n;
-        float a = 0.f;
+        for (int tap = 0; tap < 9; ++tap) {
+          wlo[tap] = *reinterpret_cast<const float2*>(taps + tap * KCB + 16 * ks);
+          whi[tap] = *reinterpret_cast<const float2*>(taps + tap * KCB + 16 * ks + 8);
+        }
+        const float2 blo = *reinterpret_cast<const float2*>(taps + 9 * KCB + 16 * ks);
+        const float2 bhi = *reinterpret_cast<const float2*>(taps + 9 * KCB + 16 * ks + 8);
+        float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int r = 0; r < 3; ++r)
+        for (int slot = 0; slot < 4; ++slot) {
 #pragma unroll
-          for (int kx = 0; kx < 3; ++kx)
-            a = fmaf(w9[r * 3 + kx], __bfloat162float(xs[(r * XCOLS + px + kx * d) * KC + lane]), a);
-        // depthwise BN bias + ReLU, rounded to bf16 (taps beyond the image read zero)
-        sm.A[px * ALDB + lane] = __float2bfloat16(fmaxf(a + bias, 0.f));
+          for (int kx = 0; kx < 3; ++kx) {
+            const int off = slot * SLOT_BYTES + xoff[kx] + ((32 * ks) ^ xswz[kx]);
+            const uint32_t v0 = *reinterpret_cast<const uint32_t*>(st + off);
+            const uint32_t v1 = *reinterpret_cast<const uint32_t*>(st + (off ^ 16));
+            const float x[4] = {__uint_as_float(v0 << 16), __uint_as_float(v0 & 0xffff0000u),
+                                __uint_as_float(v1 << 16), __uint_as_float(v1 & 0xffff0000u)};
+            if (slot < 3) {  // pixel (y, x): tap row ky = slot
+              const float2 l = wlo[slot * 3 + kx], h = whi[slot * 3 + kx];
+              s0[0] = fmaf(l.x, x[0], s0[0]);
+              s0[1] = fmaf(l.y, x[1], s0[1]);
+              s0[2] = fmaf(h.x, x[2], s0[2]);
+              s0[3] = fmaf(h.y, x[3], s0[3]);
+            }
+            if (slot > 0) {  // pixel (y + d, x): tap row ky = slot - 1
+              const float2 l = wlo[(slot - 1) * 3 + kx], h = whi[(slot - 1) * 3 + kx];
+              s1[0] = fmaf(l.x, x[0], s1[0]);
+              s1[1] = fmaf(l.y, x[1], s1[1]);
+              s1[2] = fmaf(h.x, x[2], s1[2]);
+              s1[3] = fmaf(h.y, x[3], s1[3]);
+            }
+          }
+        }
+        // depthwise BN bias + ReLU, rounded to bf16: fragment rows g (y) and g+8 (y+d)
+        uint32_t* f = af[ks & 1];
+        f[0] = pack_bf16(fmaxf(s0[0] + blo.x, 0.f), fmaxf(s0[1] + blo.y, 0.f));
+        f[1] = pack_bf16(fmaxf(s1[0] + blo.x, 0.f), fmaxf(s1[1] + blo.y, 0.f));
+        f[2] = pack_bf16(fmaxf(s0[2] + bhi.x, 0.f), fmaxf(s0[3] + bhi.y, 0.f));
+        f[3] = pack_bf16(fmaxf(s1[2] + bhi.x, 0.f), fmaxf(s1[3] + bhi.y, 0.f));
+        fence_regs(af[ks & 1]);  // the fragment is complete before the wgmma's fence
+        wgmma_fence();
+        wgmma_rs<PC>(acc, af[ks & 1], desc(wb + ks * 2048, 8192), c | ks);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous k-step's product is done: its fragment is free
+        fence_regs(af[(ks + 1) & 1]);
       }
-      __syncthreads();
-      a_src = sm.A;
-      a_ld = ALDB;
-    }
-#pragma unroll
-    for (int ks = 0; ks < KC; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a_src + (32 * wm + 16 * i) * a_ld + ks, a_ld);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], &sm.B[s][ks * BLDB + 64 * wn + 16 * j], BLDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
   }
-  __syncthreads();  // every warp is done with X before it becomes staging space
+  wgmma_wait0();
+  fence_regs(acc);
 
-  // epilogue: each 16x16 tile through the warp's staging buffer; a lane owns
-  // 8 consecutive channels of one pixel and writes them as one 16-byte store
-  const float* sc = t.branch == 0 ? p.a0_s : p.pw_s + (t.branch - 1) * PC;
-  const float* sh = t.branch == 0 ? p.a0_b : p.pw_b + (t.branch - 1) * PC;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-  const int r = lane >> 1, cq = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sm.stage[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int x = t.x0 + 32 * wm + 16 * i + r;
-      const int n = 64 * wn + 16 * j + cq;
-      if (x < p.W) {
-        __align__(16) __nv_bfloat16 v8[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v8[e] = __float2bfloat16(fmaxf(fmaf(sm.stage[warp][r * 16 + cq + e], sc[n + e], sh[n + e]), 0.f));
-        *reinterpret_cast<uint4*>(&out[(((size_t)t.b * p.H + t.y) * p.W + x) * (4 * PC) + t.branch * PC + n]) =
-            *reinterpret_cast<const uint4*>(v8);
-      }
-      __syncwarp();
-    }
+  // epilogue: BN + ReLU in fp32, bf16 pairs stored from the accumulator
+  // (rows g and g+8 of each warp's 16, columns 8j + 2tg, 8j + 2tg + 1)
+  const float* sc = br == 0 ? a.a0_s : a.pw_s + (br - 1) * PC;
+  const float* sh = br == 0 ? a.a0_b : a.pw_b + (br - 1) * PC;
+  int py0, py1, px0, px1;
+  if (br == 0) {  // warpgroup wg: row y + wg, pixels x0 .. x0 + 63
+    py0 = py1 = y + wg;
+    px0 = x0 + 16 * warp + g;
+    px1 = px0 + 8;
+  } else {
+    py0 = y;
+    py1 = y + d;
+    px0 = px1 = x0 + col;
   }
+  const bool ok0 = py0 < a.H && px0 < a.W, ok1 = py1 < a.H && px1 < a.W;
+  bf16* o0 = a.out + (((size_t)b * a.H + py0) * a.W + px0) * (4 * PC) + br * PC + 2 * tg;
+  bf16* o1 = a.out + (((size_t)b * a.H + py1) * a.W + px1) * (4 * PC) + br * PC + 2 * tg;
+#pragma unroll
+  for (int j = 0; j < PC / 8; ++j) {
+    const int n = 8 * j + 2 * tg;
+    const float2 s2 = *reinterpret_cast<const float2*>(sc + n), h2 = *reinterpret_cast<const float2*>(sh + n);
+    if (ok0)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) = __floats2bfloat162_rn(
+          fmaxf(fmaf(acc[4 * j], s2.x, h2.x), 0.f), fmaxf(fmaf(acc[4 * j + 1], s2.y, h2.y), 0.f));
+    if (ok1)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) = __floats2bfloat162_rn(
+          fmaxf(fmaf(acc[4 * j + 2], s2.x, h2.x), 0.f), fmaxf(fmaf(acc[4 * j + 3], s2.y, h2.y), 0.f));
+  }
+}
+
+// Embed [B, H, W, EC] as a rank-4 map (EC, W, H, B) with boxes [64 channels]
+// [box_w pixels] of one row of one image.  y has a dimension of its own even
+// at H == 1 (unlike hopper::bf16_map), so a box row above or below the image
+// reads TMA's zeros, not a neighbouring image's row.
+inline bool embed_map(CUtensorMap* map, const void* base, int b, int h, int w, int ec, int box_w) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)ec, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {2ull * ec, 2ull * ec * w, 2ull * ec * w * h};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_w, 1, 1}, one[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// embed_map through a table keyed by every input of the encode (as
+// hopper::cached_bf16_map): a call needs up to 16 embed maps
+inline bool cached_embed_map(CUtensorMap* map, const void* base, int b, int h, int w, int ec, int box_w) {
+  struct Entry {
+    const void* base;
+    int b, h, w, ec, box_w;
+    CUtensorMap map;
+  };
+  static thread_local Entry table[128] = {};
+  uint64_t x = reinterpret_cast<uintptr_t>(base) ^
+               (uint64_t)(((b * 131ll + h) * 131 + w) * 131 + ec) * 0x9E3779B97F4A7C15ull ^
+               (uint64_t)box_w * 0xC2B2AE3D27D4EB4Full;
+  x ^= x >> 29;
+  Entry& en = table[(x * 0x9E3779B97F4A7C15ull) >> 57];
+  if (en.base == base && en.b == b && en.h == h && en.w == w && en.ec == ec && en.box_w == box_w) {
+    *map = en.map;
+    return true;
+  }
+  if (!embed_map(map, base, b, h, w, ec, box_w)) return false;
+  en = Entry{base, b, h, w, ec, box_w, *map};
+  return true;
+}
+
+cudaError_t launch_tma(const void* const* embeds, int n, const float* dw_w, const float* dw_b,
+                       const void* pw_w, const float* pw_s, const float* pw_b, const void* a0_w,
+                       const float* a0_s, const float* a0_b, void* out, int b, int h, int w, int ec,
+                       const int pair[4], cudaStream_t st) {
+  const int c = n * ec;
+  const TmaPlan p = tma_plan(h, w, c, pair);
+  if (p.gx > 0x7fffffffLL) return cudaErrorInvalidValue;
+  Maps m;
+  for (int e = 0; e < n; ++e)
+    for (int br = 0; br < 4; ++br)
+      if (!cached_embed_map(&m.x[e][br], embeds[e], b, h, w, ec, TC + (br ? 2 * pair[br] : 0)))
+        return cudaErrorInvalidValue;
+  if (!cached_bf16_map(&m.pw, pw_w, 1, 3 * c, 1, PC, 3ll * c * PC, PC, PC, KCB) ||
+      !cached_bf16_map(&m.a0, a0_w, 1, c, 1, PC, (long long)c * PC, PC, PC, KCB))
+    return cudaErrorInvalidValue;
+  cudaError_t err = set_smem_once<aspp_fused_tma_kernel>(TMA_SMEM);
+  if (err != cudaSuccess) return err;
+  TmaArgs a{dw_w, dw_b, pw_s, pw_b, a0_s, a0_b, static_cast<bf16*>(out), h, w, ec, c, c / KCB,
+            {pair[0], pair[1], pair[2], pair[3]}, {p.nk[0], p.nk[1], p.nk[2], p.nk[3]},
+            p.nk_max, p.strips, p.group};
+  aspp_fused_tma_kernel<<<dim3((unsigned)p.gx, b), TMA_THREADS, TMA_SMEM, st>>>(m, a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -341,36 +591,54 @@ const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<c
 
 // dtype: 0 = float32, 1 = bfloat16 (embeds, pw_w, a0_w and out; the other
 // parameters are float32).  Every tensor is contiguous and 16-byte aligned.
-// Requires 1 <= n_embeds <= 4, ec % 32 == 0, dilations in [1, 24] and PC ==
-// 256 output channels per branch (the caller checks).  Returns the cudaError_t of the launch.
+// Requires 1 <= n_embeds <= 4, dilations in [1, 24], b <= 65535 and PC ==
+// 256 output channels per branch; ec % 32 == 0 for float32 and ec % 64 == 0
+// for bfloat16 (whose stages take 64 channels of one embed).  Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for input outside these
+// bounds).
 int madm_aspp_fused(int dtype, const void* const* embeds, int n_embeds, const float* dw_w,
                     const float* dw_b, const void* pw_w, const float* pw_s, const float* pw_b,
                     const void* a0_w, const float* a0_s, const float* a0_b, void* out, int b,
                     int h, int w, int ec, int d1, int d2, int d3, void* stream) {
   const long long tiles = (long long)h * ((w + TP - 1) / TP);
-  if (n_embeds < 1 || n_embeds > kMaxEmbeds || ec % KC != 0 || tiles > 0x7fffffffLL ||
-      b > 65535 || d1 < 1 || d2 < 1 || d3 < 1 || d1 > kMaxDilation || d2 > kMaxDilation ||
-      d3 > kMaxDilation)
+  if (n_embeds < 1 || n_embeds > kMaxEmbeds || ec % (dtype == 1 ? KCB : KC) != 0 ||
+      tiles > 0x7fffffffLL || b > 65535 || d1 < 1 || d2 < 1 || d3 < 1 || d1 > kMaxDilation ||
+      d2 > kMaxDilation || d3 > kMaxDilation)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    const int pair[4] = {1, d1, d2, d3};
+    return static_cast<int>(launch_tma(embeds, n_embeds, dw_w, dw_b, pw_w, pw_s, pw_b, a0_w, a0_s,
+                                       a0_b, out, b, h, w, ec, pair, st));
+  }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   for (int i = 0; i < n_embeds; ++i) p.embeds.p[i] = embeds[i];
   p.dw_w = dw_w; p.dw_b = dw_b; p.pw_w = pw_w; p.pw_s = pw_s; p.pw_b = pw_b;
   p.a0_w = a0_w; p.a0_s = a0_s; p.a0_b = a0_b; p.out = out;
   p.H = h; p.W = w; p.EC = ec; p.C = n_embeds * ec; p.d1 = d1; p.d2 = d2; p.d3 = d3;
-  const dim3 grid((unsigned)tiles, 4, b);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    aspp_fused_simt_kernel<<<grid, kThreads, 0, st>>>(p);
-  } else if (dtype == 1) {
-    const int smem = static_cast<int>(sizeof(WmmaSmem));
-    cudaError_t err = cudaFuncSetAttribute(aspp_fused_wmma_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    aspp_fused_wmma_kernel<<<grid, kThreads, smem, st>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  aspp_fused_simt_kernel<<<dim3((unsigned)tiles, 4, b), kThreads, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch plan for a shape, for holding aspp_plan() to it: out = {tile
+// columns, tile rows, input channels a stage, stages, threads, dynamic shared
+// memory bytes, grid x, y, z, column strips, strips a group, row pairs of
+// branches 0-3}.  float32: the SIMT body's (row segments of TP pixels, one
+// branch a grid row, no dynamic shared memory, no groups).
+void madm_aspp_fused_plan(int dtype, int b, int h, int w, int ec, int n_embeds, int d1, int d2,
+                          int d3, int* out) {
+  const int strips = (w + TP - 1) / TP;
+  if (dtype == 1) {
+    const int pair[4] = {1, d1, d2, d3};
+    const TmaPlan p = tma_plan(h, w, n_embeds * ec, pair);
+    const int v[15] = {TC, 2, KCB, STAGES, TMA_THREADS, TMA_SMEM, (int)p.gx, b, 1,
+                       p.strips, p.group, p.nk[0], p.nk[1], p.nk[2], p.nk[3]};
+    for (int i = 0; i < 15; ++i) out[i] = v[i];
+  } else {
+    const int v[15] = {TP, 1, KC, 1, kThreads, 0, h * strips, 4, b, strips, 0, h, h, h, h};
+    for (int i = 0; i < 15; ++i) out[i] = v[i];
+  }
 }
 
 }  // extern "C"

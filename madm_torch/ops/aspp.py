@@ -4,6 +4,10 @@
 - ``aspp_fused`` (K2, ``csrc/aspp_fused.cu``, replaces ``_aspp_fused_kernel``):
   the whole sep-ASPP fuse layer, NHWC embeds -> branch concat
   ``[B, H, W, 4*PC]``; ``aspp_head_forward`` is the 'aspp' eval head on it.
+  ``aspp_plan`` states, as a pure function of shape, dilations and dtype, how
+  it launches (tile, stages, threads, shared memory, grid, block order) and
+  refuses what its bodies do not take; ``AsppPlan.tile_pixels`` and
+  ``AsppPlan.halo_boxes`` give the bf16 body's row-to-pixel map and TMA boxes.
 - ``dw_branches`` (K6, ``csrc/dw_branches.cu``, replaces ``_dw_kernel``):
   dilated 3x3 depthwise conv + folded BN + ReLU, one output per dilation.
 - ``matmul_argmax`` (K7, ``csrc/matmul_argmax.cu``, replaces
@@ -18,17 +22,38 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
+from .flash_attention import SM_COUNT
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_PC = 256  # output channels per branch the kernel is built for
-KERNEL_CHUNK = 32  # embed channels must be a multiple of the kernel's chunk
+KERNEL_CHUNK = {torch.float32: 32, torch.bfloat16: 64}  # embed channels must be a multiple of these
 KERNEL_MAX_DILATION = 24  # halo of the rows the kernel stages in shared memory
+KERNEL_MAX_BATCH = 65535  # the grid's y (bf16) or z (float32) extent
+TILE_COLS = 64  # pixels of a tile row
+TMA_STAGES = 2
+TMA_THREADS = 256  # two consumer warpgroups
+_SLOT_BYTES = (TILE_COLS + 2 * KERNEL_MAX_DILATION) * 128  # one halo row of 64 channels
+_STAGE_BYTES = -(-(4 * _SLOT_BYTES + 64 * KERNEL_PC * 2 + 10 * 64 * 4) // 1024) * 1024
+TMA_SMEM = 1024 + TMA_STAGES * _STAGE_BYTES + 8 * 2 * TMA_STAGES
+L2_BUDGET = 30 << 20  # bytes of live halo rows the block order aims to keep in the 50 MB L2
+
+
+def depthwise_reference(x: torch.Tensor, w_fold: torch.Tensor, bias: torch.Tensor, d: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+    """One dilated branch's depthwise output as K2 feeds it to the pointwise
+    product: relu(conv3x3_d(x) + bias) in fp32, rounded to ``dtype``.  x
+    [B, H, W, C] fp32, w_fold [3, 3, C] (BN scale folded), bias [C]."""
+    c = x.shape[-1]
+    k = w_fold.float().permute(2, 0, 1).unsqueeze(1)  # [C, 1, 3, 3]
+    dwo = F.conv2d(x.permute(0, 3, 1, 2), k, padding=d, dilation=d, groups=c).permute(0, 2, 3, 1)
+    return F.relu(dwo + bias.float()).to(dtype).float()
 
 
 def aspp_fused_reference(embeds: Sequence[torch.Tensor], dw_w, dw_s, dw_b, pw_w, pw_s, pw_b,
@@ -43,16 +68,155 @@ def aspp_fused_reference(embeds: Sequence[torch.Tensor], dw_w, dw_s, dw_b, pw_w,
     before the pointwise product, as the kernel does."""
     dtype = embeds[0].dtype
     x = torch.cat([e.float() for e in embeds], dim=-1)  # [B, H, W, C]
-    c = x.shape[-1]
-    xc = x.permute(0, 3, 1, 2)
     w_fold = dw_w.float() * dw_s.float()[:, None, None, :]
     outs = [F.relu(x @ a0_w.float() * a0_s.float() + a0_b.float())]
     for i, d in enumerate(dilations):
-        k = w_fold[i].permute(2, 0, 1).unsqueeze(1)  # [C, 1, 3, 3]
-        dwo = F.conv2d(xc, k, padding=d, dilation=d, groups=c).permute(0, 2, 3, 1)
-        dwo = F.relu(dwo + dw_b[i].float()).to(dtype).float()
+        dwo = depthwise_reference(x, w_fold[i], dw_b[i], d, dtype)
         outs.append(F.relu(dwo @ pw_w[i].float() * pw_s[i].float() + pw_b[i].float()))
     return torch.cat(outs, dim=-1).to(dtype)
+
+
+# ------------------------------------------------------------ launch plan
+def _row_pairs(h: int, e: int) -> int:
+    """How many rows y < h have floor(y / e) even: the tiles down the image of
+    a branch whose tile pairs rows y and y + e."""
+    return h // (2 * e) * e + min(h % (2 * e), e)
+
+
+@dataclass(frozen=True)
+class AsppPlan:
+    """How K2 runs a call.
+
+    ``body`` "tma_wgmma" (bf16) or "simt" (float32).  A bf16 block computes
+    ``tile_cols`` pixels of ``tile_rows`` = 2 image rows, y and y + e with e =
+    ``pairs[branch]`` (1 for aspp_0, the dilation for the others), for one
+    branch, streaming ``chunk`` input channels a stage through ``stages``
+    stages.  ``row_pairs[branch]`` tiles run down the image, ``strips``
+    across it; ``group`` strips walk down the image together (block order:
+    branch fastest, then the strip in its group, then the row pair, then the
+    group; grid y is the batch).  The float32 body: a block is ``tile_cols``
+    pixels of one row and one branch (grid (H * strips, 4, B)), and
+    ``row_pairs`` the H rows."""
+    body: str
+    tile_cols: int
+    tile_rows: int
+    chunk: int
+    stages: int
+    threads: int
+    smem: int  # dynamic shared-memory bytes
+    grid: Tuple[int, int, int]
+    strips: int
+    group: int
+    row_pairs: Tuple[int, int, int, int]
+    pairs: Tuple[int, int, int, int]
+
+    def c_plan(self) -> list:
+        """The plan as ``madm_aspp_fused_plan`` in csrc/aspp_fused.cu writes it."""
+        return [self.tile_cols, self.tile_rows, self.chunk, self.stages, self.threads, self.smem,
+                *self.grid, self.strips, self.group, *self.row_pairs]
+
+    def blocks(self) -> Iterator[Optional[Tuple[int, int, int]]]:
+        """(branch, row pair k, strip) of each bf16 block of one image in launch
+        order, None for a block past its branch's row pairs (the kernel's
+        ``tma_tile``)."""
+        nk_max, g = max(self.row_pairs), self.group
+        full = self.strips // g
+        for bx in range(self.grid[0]):
+            br, rest = bx & 3, bx >> 2
+            if rest < full * nk_max * g:
+                grp, r = divmod(rest, nk_max * g)
+                k, s = divmod(r, g)
+                strip = grp * g + s
+            else:
+                rem = self.strips - full * g
+                k, s = divmod(rest - full * nk_max * g, rem)
+                strip = full * g + s
+            yield (br, k, strip) if k < self.row_pairs[br] else None
+
+    def tile_row(self, branch: int, k: int) -> int:
+        """The first image row y of tile k of a branch (its second is y + e)."""
+        e = self.pairs[branch]
+        return k // e * 2 * e + k % e
+
+    def tile_pixels(self, branch: int, k: int, strip: int) -> torch.Tensor:
+        """[128, 2] int (row, column) of the pixel of each accumulator row m of
+        a bf16 tile (m = 64 * warpgroup + 16 * warp + r; a thread holds rows
+        r = g and g + 8 of its warp).  Pixels past H or W are computed and
+        not stored."""
+        m = torch.arange(128)
+        wg, warp, r = m // 64, m % 64 // 16, m % 16
+        y, x0 = self.tile_row(branch, k), strip * self.tile_cols
+        if branch == 0:  # warpgroup wg: row y + wg, its 64 pixels in order
+            return torch.stack([y + wg, x0 + m % 64], dim=1)
+        # rows g and g + 8 of a thread: pixels (y, x) and (y + d, x), one column
+        return torch.stack([y + (r // 8) * self.pairs[branch], x0 + 32 * wg + 8 * warp + r % 8], dim=1)
+
+    def halo_boxes(self, branch: int, k: int, strip: int) -> Tuple[Tuple[int, int, int, int], ...]:
+        """(slot, image row, first column, width) of each TMA box of a chunk:
+        slots 1 and 2 hold rows y and y + 1 (aspp_0, 64 columns); the dilated
+        branches' slots 0-3 rows y - d, y, y + d, y + 2d, columns x0 - d ..
+        x0 + 63 + d.  Coordinates outside the image read zeros."""
+        y, x0 = self.tile_row(branch, k), strip * self.tile_cols
+        if branch == 0:
+            return tuple((1 + r, y + r, x0, self.tile_cols) for r in range(2))
+        d = self.pairs[branch]
+        return tuple((r, y + (r - 1) * d, x0 - d, self.tile_cols + 2 * d) for r in range(4))
+
+
+def aspp_plan(b: int, h: int, w: int, ec: int, n_embeds: int, dilations: Sequence[int],
+              dtype: torch.dtype) -> AsppPlan:
+    """K2's launch plan (``madm_aspp_fused_plan`` in csrc/aspp_fused.cu makes
+    the same choice); raises ValueError for what the kernel does not take:
+    1-4 embeds, each a multiple of 32 channels (float32) or 64 (bf16: a stage
+    is 64 channels of one embed), three dilations in [1, 24], B <= 65535."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"aspp_fused takes float32 or bfloat16 embeds, got {dtype}")
+    chunk = KERNEL_CHUNK[dtype]
+    if not 1 <= n_embeds <= 4 or ec % chunk or len(dilations) != 3 \
+            or not all(1 <= d <= KERNEL_MAX_DILATION for d in dilations):
+        raise ValueError(
+            f"aspp_fused kernel takes 1-4 embeds of a multiple of {chunk} channels ({dtype}) and "
+            f"3 dilations in [1, {KERNEL_MAX_DILATION}]; got {n_embeds} x {ec}, {tuple(dilations)}")
+    if not 1 <= b <= KERNEL_MAX_BATCH:
+        raise ValueError(f"aspp_fused kernel takes a batch of 1 to {KERNEL_MAX_BATCH}, got {b}")
+    strips = -(-w // TILE_COLS)
+    pairs = (1, *(int(d) for d in dilations))
+    if dtype == torch.float32:
+        if h * strips > 2 ** 31 - 1:
+            raise ValueError(f"aspp_fused: {h} x {w} is too many row segments for the grid")
+        return AsppPlan("simt", TILE_COLS, 1, chunk, 1, 256, 0, (h * strips, 4, b), strips, 0,
+                        (h,) * 4, pairs)
+    row_pairs = tuple(_row_pairs(h, e) for e in pairs)
+    dmax, c = max(pairs[1:]), n_embeds * ec
+    group = 1
+    for g in (16, 8, 4, 2):
+        rows = 3 * dmax + 2 + 2 * -(-SM_COUNT // (4 * g))
+        if g <= strips and rows * (TILE_COLS * g + 2 * dmax) * c * 2 <= L2_BUDGET:
+            group = g
+            break
+    gx = 4 * max(row_pairs) * strips
+    if gx > 2 ** 31 - 1:
+        raise ValueError(f"aspp_fused: {h} x {w} is too many tiles for the grid")
+    return AsppPlan("tma_wgmma", TILE_COLS, 2, chunk, TMA_STAGES, TMA_THREADS, TMA_SMEM, (gx, b, 1),
+                    strips, group, row_pairs, pairs)
+
+
+def tma_maps(b: int, h: int, w: int, ec: int, n_embeds: int,
+             dilations: Sequence[int]) -> Tuple[Tuple[str, Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]], ...]:
+    """(name, dims, byte strides, box) of each tensor map the bf16 body
+    encodes (``launch_tma`` in csrc/aspp_fused.cu), dims and box innermost
+    first: embed e as branch br reads it, rank 4 (EC, W, H, B) with boxes
+    [64 channels][64 + 2 d pixels] (d = 0 for aspp_0); pw_w as a [3C][PC]
+    and a0_w as a [C][PC] matrix, boxes [64][64].  All 128-byte swizzled."""
+    c = n_embeds * ec
+    maps = []
+    for e in range(n_embeds):
+        for br, d in enumerate((0, *dilations)):
+            maps.append((f"embed{e}/branch{br}", (ec, w, h, b), (2 * ec, 2 * ec * w, 2 * ec * w * h),
+                         (64, TILE_COLS + 2 * d, 1, 1)))
+    maps.append(("pw_w", (KERNEL_PC, 3 * c, 1), (2 * KERNEL_PC, 2 * KERNEL_PC * 3 * c), (64, 64, 1)))
+    maps.append(("a0_w", (KERNEL_PC, c, 1), (2 * KERNEL_PC, 2 * KERNEL_PC * c), (64, 64, 1)))
+    return tuple(maps)
 
 
 def _launch(embeds, dw_w, dw_s, dw_b, pw_w, pw_s, pw_b, a0_w, a0_s, a0_b, dilations):
@@ -62,15 +226,9 @@ def _launch(embeds, dw_w, dw_s, dw_b, pw_w, pw_s, pw_b, a0_w, a0_s, a0_b, dilati
     n = len(embeds)
     c = n * ec
     pc = pw_w.shape[-1]
-    if dt not in _DTYPES:
-        raise ValueError(f"aspp_fused takes float32 or bfloat16 embeds, got {dt}")
-    if (not 1 <= n <= 4 or ec % KERNEL_CHUNK or len(dilations) != 3 or pc != KERNEL_PC
-            or not all(1 <= d <= KERNEL_MAX_DILATION for d in dilations)):
-        raise ValueError(
-            f"aspp_fused kernel takes 1-4 embeds of a multiple of {KERNEL_CHUNK} channels, "
-            f"3 dilations in [1, {KERNEL_MAX_DILATION}] and {KERNEL_PC} output channels per "
-            f"branch; got {n} x {ec}, {tuple(dilations)}, {pc}"
-        )
+    if pc != KERNEL_PC:
+        raise ValueError(f"aspp_fused kernel takes {KERNEL_PC} output channels per branch, got {pc}")
+    aspp_plan(b, h, w, ec, n, dilations, dt)
     if any(e.shape != e0.shape or e.dtype != dt or e.device != e0.device for e in embeds):
         raise ValueError("aspp_fused: embeds differ in shape, dtype or device")
     if not e0.is_cuda:
@@ -89,26 +247,45 @@ def _launch(embeds, dw_w, dw_s, dw_b, pw_w, pw_s, pw_b, a0_w, a0_s, a0_b, dilati
             or tuple(params["a0_w"].shape) != (c, pc):
         raise ValueError(f"aspp_fused weight shapes do not match C={c}, PC={pc}")
     embeds = [e.contiguous() for e in embeds]
-    if any(e.data_ptr() % 16 for e in embeds):  # the kernel reads 8 channels per load
-        raise ValueError("aspp_fused kernel needs 16-byte aligned embeds")
+    # 16-byte loads (float32) and TMA boxes and bulk copies (bf16)
+    if any(t.data_ptr() % 16 for t in (*embeds, dw_w, *params.values())):
+        raise ValueError("aspp_fused kernel needs 16-byte aligned tensors")
     out = torch.empty((b, h, w, 4 * pc), device=dev, dtype=dt)
     if out.numel() == 0:
         return out
-    lib = kernels.load("aspp_fused")
-    fn = lib.madm_aspp_fused
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
-                   + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib = _lib()
     ptrs = (ctypes.c_void_p * n)(*[e.data_ptr() for e in embeds])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], ptrs, n, dw_w.data_ptr(), params["dw_b"].data_ptr(),
-                 params["pw_w"].data_ptr(), params["pw_s"].data_ptr(), params["pw_b"].data_ptr(),
-                 params["a0_w"].data_ptr(), params["a0_s"].data_ptr(), params["a0_b"].data_ptr(),
-                 out.data_ptr(), b, h, w, ec, *[int(d) for d in dilations], stream)
+        err = lib.madm_aspp_fused(
+            _DTYPES[dt], ptrs, n, dw_w.data_ptr(), params["dw_b"].data_ptr(),
+            params["pw_w"].data_ptr(), params["pw_s"].data_ptr(), params["pw_b"].data_ptr(),
+            params["a0_w"].data_ptr(), params["a0_s"].data_ptr(), params["a0_b"].data_ptr(),
+            out.data_ptr(), b, h, w, ec, *[int(d) for d in dilations], stream)
     kernels.check(lib, err, "aspp_fused launch")
     aspp_fused.launches += 1
     return out
+
+
+def _lib() -> ctypes.CDLL:
+    """K2's library, its C functions typed once."""
+    lib = kernels.load("aspp_fused")
+    if lib.madm_aspp_fused.argtypes is None:
+        lib.madm_aspp_fused.restype = ctypes.c_int
+        lib.madm_aspp_fused.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
+                                        + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.madm_aspp_fused_plan.restype = None
+        lib.madm_aspp_fused_plan.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def c_plan(b: int, h: int, w: int, ec: int, n_embeds: int, dilations: Sequence[int],
+           dtype: torch.dtype) -> list:
+    """The plan that the C library computes for a shape (needs the built
+    library, so a machine with CUDA): the list ``AsppPlan.c_plan`` gives."""
+    out = (ctypes.c_int * 15)()
+    _lib().madm_aspp_fused_plan(_DTYPES[dtype], b, h, w, ec, n_embeds, *[int(d) for d in dilations], out)
+    return list(out)
 
 
 def aspp_fused(embeds: Sequence[torch.Tensor], dw_w, dw_s, dw_b, pw_w, pw_s, pw_b,
