@@ -6,17 +6,19 @@
 Phases (each prints its lines; any failure raises and exits nonzero):
 1. card: name and power limit;
 2. build: the CUDA kernels from madm_torch/csrc, one nvcc each, in parallel;
-3. what ptxas made of K1's, K3's and K2's kernels (registers, shared
-   memory, spills, wgmma ptxas serialized), their HGMMA (wgmma), UTMALDG
-   (TMA load) and HMMA SASS counts, and the host cost of a tensor map and of
-   a K1 call; then kernels against their plain twins in bf16 at the main
-   path's shapes (K1 at the eval pass's, K2 at the eval crop for B=1 and 2
-   and at the slide head's W=1024, with ragged shapes checked too and, as a
-   yardstick for its product part, the four products alone in
-   torch.matmul, K3 at the train step's, K1 and K3 also at B=2 for Sq=4096,
-   each K1/K2/K3 row with its launch plan held to the C library's; K4 and K5 at the
-   packed self-attention's [B,4096,8,40] for B=1 and 2, K6 and K7 at the
-   'full' eval head's): max abs error with its tolerance, kernel ms, twin
+3. what ptxas made of K1's, K3's (and K5's bf16 body, the same library),
+   K4's, K5's fp32 and K2's kernels (registers, shared memory, spills, wgmma
+   ptxas serialized), their HGMMA (wgmma), UTMALDG (TMA load) and HMMA SASS
+   counts, and the host cost of a tensor map and of a K1 call; then kernels
+   against their plain twins in bf16 at the main path's shapes (K1 at the
+   eval pass's, K2 at the eval crop for B=1 and 2 and at the slide head's
+   W=1024, with ragged shapes checked too and, as a yardstick for its
+   product part, the four products alone in torch.matmul, K3 at the train
+   step's, K1 and K3 also at B=2 for Sq=4096; K4 and K5 at the packed
+   self-attention's [B,4096,8,40] for B=1 and 2, K4's lse too, and K5 also
+   called without the forward's o and lse; K6 and K7 at the 'full' eval
+   head's; each K1-K5 row with its launch plan held to the C library's):
+   max abs error with its tolerance, kernel ms, twin
    ms, library ms where one PyTorch call computes the same function (SDPA
    forward and backward for K1/K4 and K3/K5), and the least time the card
    could take (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16 on the
@@ -103,6 +105,8 @@ from madm_torch.ops.flash_attention import (
     packed_attention_backward_reference,
     packed_attention_forward,
     packed_attention_reference,
+    packed_backward_plan,
+    packed_forward_plan,
 )
 from madm_torch.train.loop import init_train_state, synthetic_batches, train
 from madm_torch.train.train_step import TrainConfig, make_train_state, sample_draws, train_step
@@ -286,13 +290,16 @@ def check_flash_bwd(gen):
 
 
 def report_builds(q):
-    """What ptxas made of K1's, K3's and K2's bf16 kernels (registers, shared
-    memory, spills, and any wgmma ptxas serialized), the SASS they hold
-    (HGMMA = wgmma, UTMALDG = TMA tensor loads, HMMA = mma.sync), and the
-    host cost of encoding a tensor map."""
-    for name in ("flash_attention", "flash_attention_bwd", "aspp_fused"):
+    """What ptxas made of K1's, K3's, K4's, K5's and K2's kernels (registers,
+    shared memory, spills, and any wgmma ptxas serialized), the SASS they
+    hold (HGMMA = wgmma, UTMALDG = TMA tensor loads, HMMA = mma.sync), and
+    the host cost of encoding a tensor map.  K5's bf16 body is K3's
+    library (flash_attention_bwd); flash_attention_packed_bwd holds its fp32
+    body alone."""
+    for name in ("flash_attention", "flash_attention_bwd", "flash_attention_packed",
+                 "flash_attention_packed_bwd", "aspp_fused"):
         for fn, regs, smem, st, ld in kernels.ptxas_report(name):
-            if any(x in fn for x in ("tma", "bwd_prep", "reduce")):
+            if any(x in fn for x in ("tma", "bwd_prep", "reduce", "packed")):
                 log(f"ptxas {name}: {fn}: {regs} registers, {smem} bytes static smem, "
                     f"spill stores {st} B, spill loads {ld} B")
         for line in kernels.BUILD_LOGS.get(name, "").splitlines():
@@ -322,27 +329,61 @@ def report_builds(q):
         f"time a flash_attention call at [1,64,64,8,40] (enqueue, no sync)")
 
 
+def packed_plan_line(b, s, h, d):
+    """K4's and K5's Python launch plans at a bf16 shape, held to the ones
+    the C libraries compute; returns a short description."""
+    out = (ctypes.c_int * 9)()
+    fwd = packed_forward_plan(b, s, h, d, torch.bfloat16)
+    kernels.load("flash_attention_packed").madm_packed_attention_fwd_plan(b, s, h, d, out)
+    mine = [fwd.dn, fwd.bq, fwd.bk, fwd.warpgroups, int(fwd.split_d), fwd.stages, fwd.launches[0].smem]
+    if mine != list(out)[:7]:
+        raise AssertionError(f"K4 plan at {[b, s, h, d]}: Python {mine}, C {list(out)[:7]}")
+    bwd = packed_backward_plan(b, s, h, d, torch.bfloat16)
+    fn = kernels.load("flash_attention_bwd").madm_packed_attention_bwd_plan
+    fn.restype = ctypes.c_longlong
+    nbytes = fn(b, s, h, d, out)
+    smem = {l.kernel: l.smem for l in bwd.launches}
+    mine = [bwd.dn, bwd.bq, bwd.warpgroups, bwd.nsplit, bwd.bk_dq, bwd.bq_dq // 64, bwd.sqp,
+            smem["dkdv_tma"], smem["dq_tma"], bwd.workspace_bytes]
+    if mine != list(out) + [nbytes]:
+        raise AssertionError(f"K5 plan at {[b, s, h, d]}: Python {mine}, C {list(out) + [nbytes]}")
+    return ("plans K4 " + ", ".join(f"{l.kernel} grid {l.grid} x{l.threads} smem {l.smem}" for l in fwd.launches)
+            + "; K5 " + ", ".join(f"{l.kernel} grid {l.grid} x{l.threads} smem {l.smem}" for l in bwd.launches)
+            + f", nsplit {bwd.nsplit}")
+
+
 def check_packed(gen):
     """K4 and K5 at the packed UNet self-attention, [B,4096,8,40] bf16 with
-    G=3 (the last group ragged), against their fp32 twins on the same
-    inputs; SDPA forward and backward at the same shape as the library
-    times.  Bounds count the 8 real heads' work only (K4 4*B*H*S^2*D, K5
-    10*B*H*S^2*D operations), not the TPU's padded and block-diagonal MACs."""
+    G=3 (the routing decision; the bf16 bodies take one head a warpgroup),
+    against their fp32 twins on the same inputs, with K4's lse against the
+    fp32 log-sum-exp; K5 runs on K4's o and lse, and once more called alone
+    (it then runs K4 first), which must give the same gradients.  SDPA
+    forward and backward at the same shape as the library times.  Bounds
+    count the 8 real heads' work only (K4 4*B*H*S^2*D, K5 10*B*H*S^2*D
+    operations), not the TPU's padded and block-diagonal MACs nor the
+    two-pass recompute."""
     rows = []
     for b, s, h, d in PACKED_SHAPES:
         g = pack_group(s, s, d, True)
         q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for _ in range(4))
         scale = d ** -0.5
-        out = packed_attention_forward(q, k, v, scale, g)
-        grads = packed_attention_backward(q, k, v, do, scale, g)
+        out, lse = packed_attention_forward(q, k, v, scale, g, with_lse=True)
+        grads = packed_attention_backward(q, k, v, do, scale, g, out, lse)
+        alone = packed_attention_backward(q, k, v, do, scale, g)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(grads, alone))
         ref = packed_attention_reference(q.float(), k.float(), v.float(), scale)
         err = (out.float() - ref).abs().max().item()
         tol = 2.0 ** -7 * max(1.0, ref.abs().max().item())  # bf16 output rounding
         del ref
+        lse_ref = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, -1)
+        lse_err = (lse - lse_ref).abs().max().item()
+        lse_tol = 2.0 ** -8 * max(1.0, lse_ref.abs().max().item())  # q*scale rounded to bf16
+        del lse_ref
         refs = packed_attention_backward_reference(q.float(), k.float(), v.float(), do.float(), scale)
         # P and dS rounded to bf16 before the products, q*scale before the
-        # scores (as on the TPU): ~2^-9 relative each over S terms
+        # scores (as on the TPU), delta from K4's bf16 O: ~2^-9 relative each
+        # over S terms
         errs = [(x.float() - r).abs().max().item() for x, r in zip(grads, refs)]
         tols = [2.0 ** -6 * r.abs().max().item() for r in refs]
         del refs
@@ -350,7 +391,7 @@ def check_packed(gen):
         plain = cuda_ms(lambda: packed_attention_reference(q, k, v, scale), reps=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bwd_ms = cuda_ms(lambda: packed_attention_backward(q, k, v, do, scale, g))
+        bwd_ms = cuda_ms(lambda: packed_attention_backward(q, k, v, do, scale, g, out, lse))
         bwd_plain = cuda_ms(lambda: packed_attention_backward_reference(q, k, v, do, scale),
                             reps=3, warmup=1)
         o_lib = F.scaled_dot_product_attention(qt, kt, vt)
@@ -359,22 +400,24 @@ def check_packed(gen):
         del o_lib
         n = q.numel()
         bnd, by = bound_ms(2 * 4 * n, 4 * b * h * s * s * d)
-        bwd_bnd, bwd_by = bound_ms(2 * 7 * n, 10 * b * h * s * s * d)
-        row = dict(shape=[b, s, h, d], g=g, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain,
-                   library_ms=lib, bound_ms=bnd, bound_by=by,
-                   bwd=dict(max_abs_err=max(errs), errs=errs, tols=tols, ms=bwd_ms,
+        bwd_bnd, bwd_by = bound_ms(2 * 7 * n + 4 * lse.numel(), 10 * b * h * s * s * d)
+        row = dict(shape=[b, s, h, d], g=g, max_abs_err=err, tol=tol, lse_err=lse_err, ms=ms,
+                   plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by,
+                   bwd=dict(max_abs_err=max(errs), errs=errs, tols=tols, alone_equal=same, ms=bwd_ms,
                             plain_ms=bwd_plain, library_ms=bwd_lib, bound_ms=bwd_bnd,
                             bound_by=bwd_by))
         log(f"K4 packed_attention [B,S,H,D]=[{b},{s},{h},{d}] G={g}: max_abs_err={err:.3e} "
-            f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA) "
-            f"bound_ms={bnd:.5f} ({by})")
+            f"(tol {tol:.3e}) lse_err={lse_err:.3e} (tol {lse_tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (SDPA) bound_ms={bnd:.5f} ({by}); {packed_plan_line(b, s, h, d)}")
         log(f"K5 packed_attention_backward [B,S,H,D]=[{b},{s},{h},{d}] G={g}: "
             + " ".join(f"{nm}_err={e:.3e} (tol {t:.3e})" for nm, e, t in zip(("dq", "dk", "dv"), errs, tols))
-            + f" ms={bwd_ms:.4f} plain_ms={bwd_plain:.4f} library_ms={bwd_lib:.4f} (SDPA backward) "
+            + f"; called alone (K4 first) {'equal' if same else 'DIFFERENT'}; ms={bwd_ms:.4f} "
+            f"plain_ms={bwd_plain:.4f} library_ms={bwd_lib:.4f} (SDPA backward) "
             f"bound_ms={bwd_bnd:.5f} ({bwd_by})")
-        if not (err <= tol and all(e <= t for e, t in zip(errs, tols))):
-            raise AssertionError(f"K4/K5 at {row['shape']}: forward error {err} over {tol} or "
-                                 f"gradient errors {errs} over {tols}")
+        if not (err <= tol and lse_err <= lse_tol and all(e <= t for e, t in zip(errs, tols)) and same):
+            raise AssertionError(f"K4/K5 at {row['shape']}: forward error {err} over {tol}, lse {lse_err} "
+                                 f"over {lse_tol}, gradient errors {errs} over {tols}, or the gradients "
+                                 f"of a lone backward call differ ({same})")
         rows.append(row)
     return rows
 
@@ -1195,6 +1238,7 @@ def main() -> int:
          "per": "one train step at B=1", "shapes": bwd_rows},
         {"name": "packed_attention", "route": "cuda",
          "source": "madm_torch/csrc/flash_attention_packed.cu",
+         "body": "madm_torch/csrc/flash_fwd_tma.cuh (two-pass mode)",
          "replaces": "madm_tpu/ops/flash_attention.py:383", "launches": eval_counts["packed"]["K4"],
          "max_abs_err": max(r["max_abs_err"] for r in packed_rows),
          **{k: 5 * packed_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -1202,7 +1246,8 @@ def main() -> int:
          "per": "one 512x512 flash_pack pass at B=1 (its 5 calls at [1,4096,8,40])",
          "shapes": packed_rows},
         {"name": "packed_attention_backward", "route": "cuda",
-         "source": "madm_torch/csrc/flash_attention_packed_bwd.cu",
+         "source": "madm_torch/csrc/flash_attention_bwd.cu",
+         "fp32_body": "madm_torch/csrc/flash_attention_packed_bwd.cu",
          "replaces": "madm_tpu/ops/flash_attention.py:254", "launches": packed_train["K5"],
          "max_abs_err": max(r["bwd"]["max_abs_err"] for r in packed_rows),
          **{k: 10 * packed_rows[0]["bwd"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},

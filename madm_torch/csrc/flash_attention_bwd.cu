@@ -55,6 +55,18 @@
 // - float32 (the parity path): SIMT fp32 FMA with the tiles in shared
 //   memory, one instantiation padded to D=160, delta from delta_kernel.
 //   This body does not use the tensor cores.
+//
+// The same bf16 kernels are K5's body (madm_packed_attention_bwd_tma below):
+// the backward of K4 (flash_attention_packed.cu) on the packed self-attention
+// shapes, replacing madm_tpu/ops/flash_attention.py::_packed_bwd_kernel.  K4
+// writes the row log-sum-exp in K1's convention, so P, dS, dQ, dK and dV are
+// exactly this function on K4's statistics.  The one rounding change
+// against the TPU kernel, which recomputes the statistics and takes delta =
+// rowsum(dP * P) with fp32 P: delta here is rowsum(dO * O) with K4's bf16 O,
+// which differs by the bf16 rounding of P and of O (within K5's tolerance,
+// 2^-6 of each gradient's largest entry: the CPU tests and chip_smoke.py
+// hold it).  That saves the TPU kernel's statistics pass, 4 of its 10
+// operations per (q, k, d).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -855,6 +867,28 @@ int madm_flash_attention_bwd(int dtype, const void* q, const void* k, const void
   return static_cast<int>(launch_tma(a));
 }
 
+// K5's bf16 body: K3's kernels for the backward of K4 on a packed
+// self-attention (Sq == Sk == s), from K4's saved o and fp32 lse [B, H, S].
+// Arguments as madm_flash_attention_bwd's in bf16, with K4's bounds: 1 <= g
+// <= 4 (the routing decision; the kernels take one head a warpgroup), S % 64
+// == 0, D <= 64, D % 8 == 0, 16-byte aligned tensors; `ws` is
+// madm_packed_attention_bwd_plan's bytes.  Returns the cudaError_t of the
+// launches; the kernels run on `stream`.
+int madm_packed_attention_bwd_tma(const void* q, const void* k, const void* v, const void* o,
+                                  const void* dout, const void* lse, void* ws, void* dq, void* dk,
+                                  void* dv, int b, int s, int h, int d, int g, float scale,
+                                  void* stream) {
+  if (g < 1 || g > 4 || d < 1 || d > 64 || d % 8 != 0 || s % 64 != 0 || b < 1 || h < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = aligned16(q) && aligned16(k) && aligned16(v) && aligned16(dout) && aligned16(dq) &&
+                  aligned16(dk) && aligned16(dv) && aligned16(ws);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(ws),
+               dq, dk, dv, Shape{b, s, s, h, d}, scale * kLog2e, scale,
+               static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(launch_tma(a));
+}
+
 // The bf16 path's plan for a shape, for holding attention_plan() to it:
 // out = {padded D, q rows a dK/dV tile, dK/dV consumer warpgroups, dK/dV
 // splits, keys a dQ tile, dQ consumer warpgroups, padded Sq, dK/dV shared
@@ -866,6 +900,12 @@ long long madm_flash_attention_bwd_plan(int b, int sq, int sk, int h, int d, int
   const int v[9] = {p.dn, p.bq_kv, p.nwg_kv, p.nsplit, p.bk_q, p.nwg_q, p.sqp, sm[0], sm[1]};
   for (int i = 0; i < 9; ++i) out[i] = v[i];
   return p.bytes;
+}
+
+// K5's bf16 plan for a [B, S, H, D] self-attention: K3's at Sq == Sk == S
+// (the same out values and workspace bytes).
+long long madm_packed_attention_bwd_plan(int b, int s, int h, int d, int* out) {
+  return madm_flash_attention_bwd_plan(b, s, s, h, d, out);
 }
 
 }  // extern "C"

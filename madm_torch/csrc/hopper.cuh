@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels K1
-// (flash_attention.cu) and K3 (flash_attention_bwd.cu) and the sep-ASPP
-// kernel K2 (aspp_fused.cu): tensor maps for the Tensor Memory Accelerator
+// Hopper (sm_90a) building blocks shared by the attention kernels K1 and K4
+// (flash_fwd_tma.cuh, under flash_attention.cu and flash_attention_packed.cu),
+// K3 and K5's bf16 body (flash_attention_bwd.cu) and the sep-ASPP kernel K2
+// (aspp_fused.cu): tensor maps for the Tensor Memory Accelerator
 // (TMA), mbarriers, named barriers and warpgroup matrix multiplies (wgmma).
 //
 // Registers.  An attention block is one or two consumer warpgroups and one

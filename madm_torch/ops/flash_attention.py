@@ -18,21 +18,29 @@ and ``split_dkdv_reference`` is the plain form of K3's split dK/dV sum.
 
 The packed-head path (``packed_attention``) is the same function for the
 self-attentions that ``pack_group`` picks when packing is on
-(``MADMConfig.flash_pack``): kernel K4 ``csrc/flash_attention_packed.cu``
-(replaces ``_packed_attn_kernel``) and K5 ``csrc/flash_attention_packed_bwd.cu``
-(replaces ``_packed_bwd_kernel``) take G heads a block, with the TPU kernels'
-rounding points; their twins are ``packed_attention_reference`` and
-``packed_attention_backward_reference``.  K5 recomputes the row statistics
-from q, k, v and dO, as the TPU kernel does, so nothing but the inputs is
-saved for it.  ``packed_attention.launches`` and
-``packed_attention_backward.launches`` count their launches.
+(``MADMConfig.flash_pack``), with the TPU kernels' rounding points: kernel
+K4 ``csrc/flash_attention_packed.cu`` (replaces ``_packed_attn_kernel``;
+its bf16 body is K1's TMA body in a two-pass mode, ``csrc/flash_fwd_tma.cuh``)
+and K5 (replaces ``_packed_bwd_kernel``; its bf16 body is K3's kernels on
+K4's saved output and row log-sum-exp, entered as
+``madm_packed_attention_bwd_tma`` in ``csrc/flash_attention_bwd.cu``, its
+fp32 body ``csrc/flash_attention_packed_bwd.cu``).  Their twins are
+``packed_attention_reference`` and ``packed_attention_backward_reference``;
+``packed_attention_two_pass_reference`` and
+``packed_backward_from_stats_reference`` state the bf16 bodies' own
+arithmetic (tiles, online statistics, delta from the bf16 output).
+``packed_forward_plan`` and ``packed_backward_plan`` state how they launch.
+``packed_attention.launches`` and ``packed_attention_backward.launches``
+count their launches.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
+import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -110,8 +118,9 @@ class Launch:
 
 @dataclass(frozen=True)
 class AttentionPlan:
-    """How K1 or K3 runs a call: ``body`` "tma_wgmma" (bf16) or "simt"
-    (float32); ``dn`` the head dim padded for the tensor cores; ``bq`` and
+    """How K1, K3, K4 or K5 runs a call: ``body`` "tma_wgmma" (bf16; K4's
+    "tma_wgmma_two_pass") or "simt" (float32); ``dn`` the head dim padded for
+    the tensor cores (the fp32 bodies' padded head dim); ``bq`` and
     ``bk`` the query rows and keys of a block's tiles (for K3, those of the
     dK/dV kernel; ``bk_dq``/``bq_dq`` those of the dQ kernel); ``warpgroups``
     the consumer warpgroups of the main kernel and ``split_d`` whether they
@@ -144,7 +153,7 @@ class AttentionPlan:
         """How many blocks of the main kernel compute each (query, key) score:
         its grid's y extent over the heads (a kernel that split D's output
         columns over blocks would recompute the scores in each)."""
-        return self.launches[0 if self.kernel == "K1" else 1].grid[1] // self.heads
+        return self.launches[0 if self.kernel in ("K1", "K4") else 1].grid[1] // self.heads
 
 
 def _tma_checks(name: str, d: int, h: int, tensors: Sequence[Tuple[int, Tuple[int, int, int]]],
@@ -406,6 +415,7 @@ flash_attention.launches = 0
 # ------------------------------------------------------- packed-head path
 _LOG2E = 1.4426950408889634
 MAX_PACKED_HEAD_DIM = 64  # 128 // D >= 2: wider heads never pack
+PACKED_KEY_TILE = 64  # K4's bf16 keys a tile
 
 
 def pack_group(sq: int, sk: int, d: int, enabled: bool) -> int:
@@ -456,70 +466,210 @@ def packed_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: tor
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def packed_attention_two_pass_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        scale: Optional[float] = None, bk: int = PACKED_KEY_TILE,
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's bf16 body in plain torch: (o, lse).  q * scale * log2(e) rounded
+    to q.dtype; pass 1 walks the keys in tiles of ``bk`` (the kernel's key
+    width) and keeps the online row max m and sum l in fp32, rescaling l as
+    m moves; pass 2 recomputes each tile's scores and accumulates
+    bf16(exp2(s - m) * (1/l)) V in fp32; o in q.dtype, lse the fp32 row
+    log-sum-exp [B, H, S] of the scaled scores in K1's convention,
+    (m + log2 l) * ln 2."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    qs = (q.float() * (scale * _LOG2E)).to(dt).float()
+    kf, vf = k.float(), v.float()
+    b, s, h, _ = q.shape
+    m = torch.full((b, h, s, 1), -math.inf)
+    l = torch.zeros((b, h, s, 1))
+    tiles = [(k0, min(k0 + bk, kf.shape[1])) for k0 in range(0, kf.shape[1], bk)]
+    for k0, k1 in tiles:
+        st = torch.einsum("bqhd,bkhd->bhqk", qs, kf[:, k0:k1])
+        n = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        l = l * torch.exp2(m - n) + torch.exp2(st - n).sum(dim=-1, keepdim=True)
+        m = n
+    inv = 1.0 / l
+    o = torch.zeros(qs.shape)
+    for k0, k1 in tiles:
+        st = torch.einsum("bqhd,bkhd->bhqk", qs, kf[:, k0:k1])
+        p = (torch.exp2(st - m) * inv).to(dt).float()
+        o = o + torch.einsum("bhqk,bkhd->bqhd", p, vf[:, k0:k1])
+    lse = ((m + torch.log2(l)) * math.log(2.0))[..., 0]
+    return o.to(dt).contiguous(), lse.contiguous()
+
+
+def packed_backward_from_stats_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                         o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                                         scale: Optional[float] = None,
+                                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's bf16 body (K3's kernels) in plain torch: (dq, dk, dv) of the packed
+    forward from its output ``o`` and fp32 ``lse`` [B, H, S].  P = exp2(qs
+    k^T - lse * log2(e)) with qs = q * scale * log2(e) rounded to q.dtype;
+    delta = rowsum(dO * O) with ``o`` as given (K4's output, in q.dtype),
+    where the TPU kernel takes rowsum(dP * P) with fp32 P; P and dS rounded
+    to q.dtype before the dV, dQ and dK products; returned in the inputs'
+    dtypes."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    dt = q.dtype
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.to(dt).float()
+    qs = (qf * (scale * _LOG2E)).to(dt).float()
+    lse2 = lse.float()[..., None] * _LOG2E
+    p = torch.exp2(torch.einsum("bqhd,bkhd->bhqk", qs, kf) - lse2)
+    delta = (gf * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, S, 1]
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = (p * (dp - delta)).to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _packed_pad(d: int) -> int:
+    """The fp32 packed bodies' head dim padding."""
+    return next(x for x in (8, 16, 32, 48, 64) if d <= x)
+
+
+def _check_packed_shape(b: int, s: int, h: int, d: int, g: int) -> None:
+    if d > MAX_PACKED_HEAD_DIM or not 1 <= g <= min(4, 128 // d):
+        raise ValueError("packed attention takes D <= 64 and 1 <= g <= min(4, 128 // D) heads "
+                         f"a block; got D={d}, g={g}")
+    if s % 64:
+        raise ValueError(f"packed attention needs S % 64 == 0, got S={s}")
+
+
+def packed_forward_plan(b: int, s: int, h: int, d: int, dtype: torch.dtype,
+                        tensors: Sequence[Tuple[int, Tuple[int, int, int]]] = (),
+                        g: Optional[int] = None) -> AttentionPlan:
+    """K4's plan for a [B, S, H, D] self-attention (``madm_packed_attention_fwd_plan``
+    in csrc/flash_attention_packed.cu makes the same choice).  bf16: K1's TMA
+    body in its two-pass mode, K1's rows, warpgroups and D padding for Sq ==
+    Sk == S but 64-key tiles (two blocks an SM at D <= 48), one head a consumer
+    warpgroup whatever ``g``, raising for tensors TMA cannot address
+    (``tensors`` as for ``forward_plan``); float32: the SIMT body, one thread
+    a (row, head), ``g`` heads a block (default min(4, 128 // D))."""
+    g = min(4, 128 // d) if g is None else g
+    _check_packed_shape(b, s, h, d, g)
+    if dtype == torch.float32:
+        dp = _packed_pad(d)
+        return AttentionPlan("K4", "simt", h, dp, 64, 32, launches=(
+            Launch("packed_fwd_simt", (s // 64, -(-h // g), b), 64 * g, 4 * 2 * 32 * g * dp),))
+    k1 = forward_plan(b, s, s, h, d, dtype, tensors)
+    bk, nch = PACKED_KEY_TILE, _chunks(k1.dn)
+    smem = 1024 + nch * k1.bq * 128 + 2 * k1.stages * nch * bk * 128 + 8 * (1 + 4 * k1.stages)
+    return dataclasses.replace(k1, kernel="K4", body="tma_wgmma_two_pass", bk=bk, launches=tuple(
+        dataclasses.replace(l, kernel="packed_fwd_tma", smem=smem) for l in k1.launches))
+
+
+def packed_backward_plan(b: int, s: int, h: int, d: int, dtype: torch.dtype,
+                         ptrs: Sequence[int] = (), g: Optional[int] = None) -> AttentionPlan:
+    """K5's plan for a [B, S, H, D] self-attention (``madm_packed_attention_bwd_plan``
+    in csrc/flash_attention_bwd.cu makes the same choice).  bf16: K3's
+    kernels at Sq == Sk == S (prep, dK/dV, its reduction where split, dQ)
+    on the forward's o and lse, raising for tensors TMA cannot address;
+    float32: the SIMT dq kernel (statistics, then dQ) and dkdv kernel,
+    ``g`` heads a block, its workspace the base-2 log-sum-exp and delta."""
+    g = min(4, 128 // d) if g is None else g
+    _check_packed_shape(b, s, h, d, g)
+    if dtype == torch.float32:
+        dp = _packed_pad(d)
+        grid, smem = (s // 64, -(-h // g), b), 4 * 2 * 32 * g * dp
+        return AttentionPlan("K5", "simt", h, dp, 64, 32, launches=(
+            Launch("packed_dq_simt", grid, 64 * g, smem),
+            Launch("packed_dkdv_simt", grid, 64 * g, smem + 4 * 2 * g * 32)),
+            workspace_bytes=2 * 4 * b * h * s)
+    return dataclasses.replace(backward_plan(b, s, s, h, d, dtype, ptrs), kernel="K5")
+
+
+_packed_backward_plan = functools.lru_cache(maxsize=64)(packed_backward_plan)  # by shape and dtype alone
+
+
 def _check_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int) -> None:
     """What K4 and K5 take; raises for anything else."""
     _check(q, k, v)
     b, s, h, d = q.shape
     if k.shape != q.shape:
         raise ValueError(f"packed attention is self-attention: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if d > MAX_PACKED_HEAD_DIM or not 1 <= g <= min(4, 128 // d):
-        raise ValueError("packed attention takes D <= 64 and 1 <= g <= min(4, 128 // D) heads "
-                         f"a block; got D={d}, g={g}")
-    if s % 64:
-        raise ValueError(f"packed attention needs S % 64 == 0, got S={s}")
+    _check_packed_shape(b, s, h, d, g)
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("packed attention needs contiguous [B, S, H, D] q, k, v")
-    if q.dtype == torch.bfloat16 and (d % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError(f"packed attention in bf16 needs D % 8 == 0 and 16-byte aligned tensors (D={d})")
+    if q.dtype == torch.bfloat16:  # what packed_forward_plan checks, without building the plan
+        _tma_checks("packed_attention", d, h, [(t.data_ptr(), t.stride()[:3]) for t in (q, k, v)], b)
+
+
+_PACKED_FWD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_void_p])
 
 
 def packed_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                             g: int) -> torch.Tensor:
-    """Kernel K4 on CUDA tensors (raises for any other): softmax(q k^T *
-    scale) v for [B, S, H, D] self-attention, ``g`` heads a block."""
+                             g: int, with_lse: bool = False,
+                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel K4 on CUDA tensors (raises for any other): (o, lse) for
+    softmax(q k^T * scale) v on a [B, S, H, D] self-attention, ``g`` heads a
+    block (``pack_group``); lse the fp32 row log-sum-exp [B, H, S] (bf16
+    only, when ``with_lse``; else None)."""
     _check_packed(q, k, v, g)
+    if with_lse and q.dtype != torch.bfloat16:
+        raise ValueError("packed_attention_forward writes lse in bf16 only (the fp32 backward "
+                         "recomputes its statistics)")
     b, s, h, d = q.shape
     o = torch.empty_like(q)
-    lib = kernels.load("flash_attention_packed")
-    fn = lib.madm_packed_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    lib, fn = _bind("flash_attention_packed", "madm_packed_attention_fwd", _PACKED_FWD_ARGS)
+    with _on_device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 b, s, h, d, g, float(scale), stream)
+                 None if lse is None else lse.data_ptr(), b, s, h, d, g, float(scale),
+                 torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, err, "packed_attention launch")
     packed_attention.launches += 1
-    return o
+    return o, lse
+
+
+_PACKED_BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_PACKED_BWD_TMA_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def packed_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
-                              scale: float, g: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                              scale: float, g: int, o: Optional[torch.Tensor] = None,
+                              lse: Optional[torch.Tensor] = None,
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) for the output gradient ``dout`` of ``packed_attention``.
     CPU tensors run ``packed_attention_backward_reference``; CUDA tensors
-    launch kernel K5, which recomputes the row statistics, or raise."""
+    launch kernel K5 or raise.  In bf16 K5 starts from the forward's output
+    ``o`` and fp32 ``lse`` [B, H, S] (K4's ``with_lse``); without them it
+    runs K4 first to get them (and ``packed_attention.launches`` says so).
+    In fp32 it recomputes the row statistics, as the TPU kernel does."""
     if q.device.type == "cpu":
         return packed_attention_backward_reference(q, k, v, dout, scale)
     _check_packed(q, k, v, g)
     if dout.shape != q.shape or dout.device != q.device:
         raise ValueError(f"dout {tuple(dout.shape)} must match q {tuple(q.shape)}")
     dout = dout.to(q.dtype).contiguous()
-    if q.dtype == torch.bfloat16 and dout.data_ptr() % 16:
-        raise ValueError("packed_attention_backward: bf16 dout must be 16-byte aligned")
     b, s, h, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse2 = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse2)
-    lib = kernels.load("flash_attention_packed_bwd")
-    fn = lib.madm_packed_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[q.dtype], *(t.data_ptr() for t in (q, k, v, dout, lse2, delta, dq, dk, dv)),
-                 b, s, h, d, g, float(scale), stream)
+    if q.dtype == torch.float32:
+        lse2 = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse2)
+        lib, fn = _bind("flash_attention_packed_bwd", "madm_packed_attention_bwd", _PACKED_BWD_ARGS)
+        with _on_device(q.device):
+            err = fn(0, *(t.data_ptr() for t in (q, k, v, dout, lse2, delta, dq, dk, dv)),
+                     b, s, h, d, g, float(scale), torch.cuda.current_stream().cuda_stream)
+    else:
+        if o is None or lse is None:
+            o, lse = packed_attention_forward(q, k, v, scale, g, with_lse=True)
+        if o.shape != q.shape or o.dtype != q.dtype or lse.shape != (b, h, s) or lse.dtype != torch.float32:
+            raise ValueError("packed_attention_backward needs the forward's o and fp32 lse [B, H, S]")
+        o, lse = o.contiguous(), lse.contiguous()
+        plan = _packed_backward_plan(b, s, h, d, q.dtype, (), g)
+        rows = (s * h * d, h * d, d)  # q, k, v were checked with their strides
+        _tma_checks("packed_attention_backward", d, h, [(t.data_ptr(), rows) for t in (dout, dq, dk, dv)], b)
+        ws = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=q.device)
+        lib, fn = _bind("flash_attention_bwd", "madm_packed_attention_bwd_tma", _PACKED_BWD_TMA_ARGS)
+        with _on_device(q.device):
+            err = fn(*(t.data_ptr() for t in (q, k, v, o, dout, lse, ws, dq, dk, dv)),
+                     b, s, h, d, g, float(scale), torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, err, "packed_attention_backward launch")
     packed_attention_backward.launches += 1
     return dq, dk, dv
@@ -529,23 +679,23 @@ packed_attention_backward.launches = 0
 
 
 class PackedAttention(torch.autograd.Function):
-    """K4 forward saving (q, k, v); K5 backward.  On CPU tensors the twins
-    take both roles."""
+    """K4 forward, saving (q, k, v) and, in bf16 on the card, K4's o and lse;
+    K5 backward.  On CPU tensors the twins take both roles."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, g: int):
         if q.device.type == "cpu":
-            o = packed_attention_reference(q, k, v, scale)
+            o, lse = packed_attention_reference(q, k, v, scale), None
         else:
-            o = packed_attention_forward(q, k, v, scale, g)
-        ctx.save_for_backward(q, k, v)
+            o, lse = packed_attention_forward(q, k, v, scale, g, with_lse=q.dtype == torch.bfloat16)
+        ctx.save_for_backward(q, k, v, o if lse is not None else None, lse)
         ctx.scale, ctx.g = scale, g
         return o
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = packed_attention_backward(q, k, v, dout, ctx.scale, ctx.g)
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = packed_attention_backward(q, k, v, dout, ctx.scale, ctx.g, o, lse)
         return dq, dk, dv, None, None
 
 
@@ -560,7 +710,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int,
         return PackedAttention.apply(q, k, v, float(scale), int(g))
     if q.device.type == "cpu":
         return packed_attention_reference(q, k, v, scale)
-    return packed_attention_forward(q, k, v, scale, g)
+    return packed_attention_forward(q, k, v, scale, g)[0]
 
 
 packed_attention.launches = 0

@@ -1,11 +1,14 @@
 """Where one eval pass spends its time on the card.
 
-    python -m madm_torch.profile_eval [--batch 1] [--eval-head full] [--slide-form batch] [--out PATH]
+    python -m madm_torch.profile_eval [--batch 1] [--eval-head full] [--slide-form batch]
+                                      [--flash-pack] [--out PATH]
 
 Runs the flagship config (full SD-v1.4, bf16) on seeded random weights, a
 512x512 crop through ``eval_forward_ids`` in the given eval head (the
 config's, 'auto', by default), or with ``--slide-form`` a 512x1024 image
-through the sliding window in that form, and reports, after warm-up:
+through the sliding window in that form, and reports, after warm-up
+(``--flash-pack``: with ``MADMConfig.flash_pack``, the five S=4096 UNet
+self-attentions on K4):
 - the mean device time of ``PASSES`` back-to-back passes (CUDA events
   around the run), as ``chip_smoke.py`` times them;
 and for one more pass:
@@ -17,7 +20,8 @@ and for one more pass:
   the device's idle share (1 - kernel time / pass time);
 and over ``PASSES`` more passes, the host ms a pass: to enqueue it (no
 synchronize between passes) and inside the attention calls
-(``ops.attention.flash_attention``, K1 and its wrapper).
+(``ops.attention.flash_attention`` and ``packed_attention``, K1 and K4 with
+their wrappers).
 Needs a GPU; prints one JSON object and writes it to ``--out``.
 """
 
@@ -37,8 +41,10 @@ from .models.madm import MADM, MADMConfig, init_random_
 
 PASSES = 20  # timed back to back for the mean pass time
 FAMILIES = (  # first match wins; lower-case substrings of kernel names
+    ("packed_attention (K4)", ("packed_fwd",)),
     ("flash_attention (K1)", ("flash_fwd",)),
-    ("flash_attention_backward (K3)", ("dkdv_", "dq_tma", "dq_simt", "delta_kernel", "bwd_prep")),
+    ("flash_attention_backward (K3; K5's bf16 body)",
+     ("dkdv_", "dq_tma", "dq_simt", "delta_kernel", "bwd_prep")),
     ("aspp_fused (K2)", ("aspp_fused",)),
     ("dw_branches (K6)", ("dw_branches",)),
     ("matmul_argmax (K7)", ("matmul_argmax",)),
@@ -87,12 +93,13 @@ def main() -> None:
     ap.add_argument("--eval-head", default="auto", help="auto, aspp, argmax, full or none")
     ap.add_argument("--slide-form", default=None, choices=("window", "batch"),
                     help="a 512x1024 sliding-window pass in this form")
+    ap.add_argument("--flash-pack", action="store_true", help="MADMConfig.flash_pack: K4 at S=4096")
     ap.add_argument("--out", default="chiprun_out/profile_eval.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval needs a GPU")
 
-    model = init_random_(MADM(MADMConfig(eval_head=args.eval_head), device="cuda"),
+    model = init_random_(MADM(MADMConfig(eval_head=args.eval_head, flash_pack=args.flash_pack), device="cuda"),
                          torch.Generator(device="cuda").manual_seed(args.seed))
     width = 1024 if args.slide_form else 512
     images = torch.rand(args.batch, 512, width, 3, device="cuda",
@@ -136,6 +143,7 @@ def main() -> None:
         "batch": args.batch,
         "eval_head": model.eval_head_mode(),
         "slide_form": args.slide_form,
+        "flash_pack": args.flash_pack,
         "mean_pass_ms": mean_ms,
         "passes": PASSES,
         "pass_ms_host": host_ms,
@@ -153,18 +161,23 @@ def main() -> None:
 
 def host_breakdown(fn):
     """Host ms a pass over ``PASSES`` passes of ``fn``, enqueued back to back:
-    in all, and inside ``ops.attention.flash_attention``."""
+    in all, and inside ``ops.attention.flash_attention`` and
+    ``packed_attention``."""
     from .ops import attention
 
-    inner, spent = attention.flash_attention, [0.0]
+    names, spent = ("flash_attention", "packed_attention"), [0.0]
+    inner = {n: getattr(attention, n) for n in names}
 
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = inner(*args, **kwargs)
-        spent[0] += time.perf_counter() - t0
-        return out
+    def timed(f):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = f(*args, **kwargs)
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
 
-    attention.flash_attention = timed
+    for n in names:
+        setattr(attention, n, timed(inner[n]))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -173,7 +186,8 @@ def host_breakdown(fn):
         enqueue = time.perf_counter() - t0
         torch.cuda.synchronize()
     finally:
-        attention.flash_attention = inner
+        for n in names:
+            setattr(attention, n, inner[n])
     return enqueue * 1e3 / PASSES, spent[0] * 1e3 / PASSES
 
 

@@ -1,9 +1,11 @@
 """Where one UDA train step spends its time on the card.
 
-    python -m madm_torch.profile_train [--batch 1] [--out profile_train.json]
+    python -m madm_torch.profile_train [--batch 1] [--flash-pack] [--out profile_train.json]
 
 Runs the flagship config (full SD-v1.4, 512x512, bf16 compute) with the
-shipped TrainConfig on seeded random weights and synthetic batches and
+shipped TrainConfig on seeded random weights and synthetic batches
+(``--flash-pack``: with ``MADMConfig.flash_pack``, the five S=4096 UNet
+self-attentions of each pass on K4 and of each backward on K5) and
 reports, for one step after two warm-up steps:
 - the host-clock step time (ends when the step's metrics reach the host);
 - device time per phase, from CUDA events recorded around the step's
@@ -95,12 +97,13 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--flash-pack", action="store_true", help="MADMConfig.flash_pack: K4/K5 at S=4096")
     ap.add_argument("--out", default="profile_train.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a GPU")
 
-    cfg = MADMConfig()
+    cfg = MADMConfig(flash_pack=args.flash_pack)
     state = init_train_state(cfg, TrainConfig(), device="cuda", seed=args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
     batches = synthetic_batches(args.batch, cfg.crop_size, cfg.num_classes, gen)
@@ -115,6 +118,7 @@ def main() -> None:
     write_json({
         "card": card_line(),
         "batch": args.batch,
+        "flash_pack": args.flash_pack,
         "step_ms_host": host_ms,
         "step_ms_device_events": step_ms,
         "phases_ms": phases,
