@@ -521,44 +521,6 @@ aspp_fused_tma_kernel(const __grid_constant__ Maps maps, const __grid_constant__
   }
 }
 
-// Embed [B, H, W, EC] as a rank-4 map (EC, W, H, B) with boxes [64 channels]
-// [box_w pixels] of one row of one image.  y has a dimension of its own even
-// at H == 1 (unlike hopper::bf16_map), so a box row above or below the image
-// reads TMA's zeros, not a neighbouring image's row.
-inline bool embed_map(CUtensorMap* map, const void* base, int b, int h, int w, int ec, int box_w) {
-  EncodeTiledFn fn = encode_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)ec, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {2ull * ec, 2ull * ec * w, 2ull * ec * w * h};
-  const cuuint32_t box[4] = {64, (cuuint32_t)box_w, 1, 1}, one[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, one,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// embed_map through a table keyed by every input of the encode (as
-// hopper::cached_bf16_map): a call needs up to 16 embed maps
-inline bool cached_embed_map(CUtensorMap* map, const void* base, int b, int h, int w, int ec, int box_w) {
-  struct Entry {
-    const void* base;
-    int b, h, w, ec, box_w;
-    CUtensorMap map;
-  };
-  static thread_local Entry table[128] = {};
-  uint64_t x = reinterpret_cast<uintptr_t>(base) ^
-               (uint64_t)(((b * 131ll + h) * 131 + w) * 131 + ec) * 0x9E3779B97F4A7C15ull ^
-               (uint64_t)box_w * 0xC2B2AE3D27D4EB4Full;
-  x ^= x >> 29;
-  Entry& en = table[(x * 0x9E3779B97F4A7C15ull) >> 57];
-  if (en.base == base && en.b == b && en.h == h && en.w == w && en.ec == ec && en.box_w == box_w) {
-    *map = en.map;
-    return true;
-  }
-  if (!embed_map(map, base, b, h, w, ec, box_w)) return false;
-  en = Entry{base, b, h, w, ec, box_w, *map};
-  return true;
-}
-
 cudaError_t launch_tma(const void* const* embeds, int n, const float* dw_w, const float* dw_b,
                        const void* pw_w, const float* pw_s, const float* pw_b, const void* a0_w,
                        const float* a0_s, const float* a0_b, void* out, int b, int h, int w, int ec,
@@ -569,7 +531,8 @@ cudaError_t launch_tma(const void* const* embeds, int n, const float* dw_w, cons
   Maps m;
   for (int e = 0; e < n; ++e)
     for (int br = 0; br < 4; ++br)
-      if (!cached_embed_map(&m.x[e][br], embeds[e], b, h, w, ec, TC + (br ? 2 * pair[br] : 0)))
+      if (!cached_embed_map(&m.x[e][br], embeds[e], b, h, w, ec, TC + (br ? 2 * pair[br] : 0),
+                            CU_TENSOR_MAP_SWIZZLE_128B))
         return cudaErrorInvalidValue;
   if (!cached_bf16_map(&m.pw, pw_w, 1, 3 * c, 1, PC, 3ll * c * PC, PC, PC, KCB) ||
       !cached_bf16_map(&m.a0, a0_w, 1, c, 1, PC, (long long)c * PC, PC, PC, KCB))

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels K1 and K4
 // (flash_fwd_tma.cuh, under flash_attention.cu and flash_attention_packed.cu),
-// K3 and K5's bf16 body (flash_attention_bwd.cu) and the sep-ASPP kernel K2
-// (aspp_fused.cu): tensor maps for the Tensor Memory Accelerator
-// (TMA), mbarriers, named barriers and warpgroup matrix multiplies (wgmma).
+// K3 and K5's bf16 body (flash_attention_bwd.cu), the sep-ASPP kernel K2
+// (aspp_fused.cu) and the 'full' head's K6 (dw_branches.cu) and K7
+// (matmul_argmax.cu): tensor maps for the Tensor Memory Accelerator (TMA),
+// mbarriers, named barriers and warpgroup matrix multiplies (wgmma).
 //
 // Registers.  An attention block is one or two consumer warpgroups and one
 // producer warp (K2's is two consumer warpgroups, one of whose threads
@@ -108,6 +109,49 @@ inline bool cached_bf16_map(CUtensorMap* map, const void* base, int b, int s, in
   }
   if (!bf16_map(map, base, b, s, h, d, sb, ss, sh, rows)) return false;
   e = Entry{base, sb, ss, sh, b, s, h, d, rows, *map};
+  return true;
+}
+
+// An NHWC embed [B, H, W, EC] as a rank-4 map (EC, W, H, B) with boxes [64
+// channels][box_w pixels] of one row of one image (K2's halo rows, 128-byte
+// swizzled; K6's chain rows, unswizzled).  y has a dimension of its own even
+// at H == 1 (unlike bf16_map), so a box row above or below the image reads
+// TMA's zeros, not a neighbouring image's row; columns left of 0 or past W
+// read zeros too.
+inline bool embed_map(CUtensorMap* map, const void* base, int b, int h, int w, int ec, int box_w,
+                      CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)ec, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {2ull * ec, 2ull * ec * w, 2ull * ec * w * h};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_w, 1, 1}, one[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, one,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// embed_map through a table keyed by every input of the encode (as
+// cached_bf16_map): a K2 call needs up to 16 embed maps, a K6 call 12
+inline bool cached_embed_map(CUtensorMap* map, const void* base, int b, int h, int w, int ec, int box_w,
+                             CUtensorMapSwizzle swizzle) {
+  struct Entry {
+    const void* base;
+    int b, h, w, ec, box_w, swizzle;
+    CUtensorMap map;
+  };
+  static thread_local Entry table[128] = {};
+  uint64_t x = reinterpret_cast<uintptr_t>(base) ^
+               (uint64_t)(((b * 131ll + h) * 131 + w) * 131 + ec) * 0x9E3779B97F4A7C15ull ^
+               (uint64_t)(box_w * 8 + (int)swizzle) * 0xC2B2AE3D27D4EB4Full;
+  x ^= x >> 29;
+  Entry& en = table[(x * 0x9E3779B97F4A7C15ull) >> 57];
+  if (en.base == base && en.b == b && en.h == h && en.w == w && en.ec == ec && en.box_w == box_w &&
+      en.swizzle == (int)swizzle) {
+    *map = en.map;
+    return true;
+  }
+  if (!embed_map(map, base, b, h, w, ec, box_w, swizzle)) return false;
+  en = Entry{base, b, h, w, ec, box_w, (int)swizzle, *map};
   return true;
 }
 

@@ -22,6 +22,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .flash_attention import SM_COUNT
+from .flash_attention import SM_COUNT, SMEM_LIMIT
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_PC = 256  # output channels per branch the kernel is built for
@@ -303,8 +304,151 @@ aspp_fused.launches = 0
 
 
 # ------------------------------------------------------------------- K6
-DW_MAX_DILATION = 18  # halo of the input rows the kernel stages in shared memory
+DW_MAX_DILATION = 18  # the bf16 body's box [64][128 + 2 d] stays within TMA's 256 columns
 DW_SLICE = {torch.float32: 32, torch.bfloat16: 64}  # channels of a block's slice
+DW_TPX = 128  # output columns of a bf16 strip
+DW_THREADS = 256
+DW_SLOTS = 6  # ring of chain rows
+DW_SLOT_BYTES = (DW_TPX + 2 * DW_MAX_DILATION) * 128
+DW_SMEM = 128 + DW_SLOTS * DW_SLOT_BYTES + 16 * DW_SLOTS
+DW_TARGET_UNITS = 2 * SM_COUNT  # fewer chains than this are cut into segments
+DW_MIN_SEG_ROWS = 8
+
+
+@dataclass(frozen=True)
+class DwPlan:
+    """How K6 runs a call.
+
+    ``body`` "chains_tma" (bf16) or "simt" (float32).  A bf16 block (a unit)
+    walks, for one dilation d, one image, one ``DW_SLICE`` channel slice and
+    one strip of ``tpx`` output columns, a segment of the chain of rows y = r,
+    r + d, r + 2d, ... (r < ``res[i]`` = min(d, H)): the chain's rows
+    ``seg * seg_rows[i]`` .. + ``seg_rows[i]`` - 1.  Each input row it reads
+    comes in once, as a TMA box of ``tpx`` + 2d columns, through a ring of
+    ``slots`` rows.  Units run dilation by dilation, and within one strip
+    fastest, then residue, segment, slice, image.  The float32 body: a block
+    is ``tpx`` pixels of one row, one slice and one dilation, grid (H *
+    strips, n_dil * slices, B)."""
+    body: str
+    tpx: int
+    threads: int
+    slots: int
+    smem: int  # dynamic shared-memory bytes
+    grid: Tuple[int, int, int]
+    strips: int
+    slices: int
+    nseg: Tuple[int, ...]
+    seg_rows: Tuple[int, ...]
+    units: Tuple[int, ...]
+    res: Tuple[int, ...]
+    dilations: Tuple[int, ...]
+    b: int
+    h: int
+    w: int
+
+    def c_plan(self) -> list:
+        """The plan as ``madm_dw_plan`` in csrc/dw_branches.cu writes it."""
+        pad = lambda t: list(t) + [0] * (3 - len(t))  # noqa: E731
+        return [int(self.body == "chains_tma"), self.tpx, self.threads, self.slots, self.smem,
+                *self.grid, self.strips, self.slices, *pad(self.nseg), *pad(self.seg_rows),
+                *pad(self.units)]
+
+    def blocks(self) -> Iterator[Tuple[int, int, int, int, int, int]]:
+        """(dilation index, strip, residue, segment, slice, image) of each bf16
+        block in launch order (the kernel's decode of blockIdx.x)."""
+        for i in range(len(self.dilations)):
+            for u in range(self.units[i]):
+                strip, u = u % self.strips, u // self.strips
+                r, u = u % self.res[i], u // self.res[i]
+                seg, u = u % self.nseg[i], u // self.nseg[i]
+                yield i, strip, r, seg, u % self.slices, u // self.slices
+
+    def chain(self, i: int, r: int, seg: int) -> Optional[Tuple[int, int, int, int]]:
+        """(k0, k1, j0, n) of a unit: it writes chain rows k0 .. k1 - 1 (image
+        rows r + k d) and reads chain rows j0 .. j0 + n - 1; None for an empty
+        segment of a short chain."""
+        d = self.dilations[i]
+        length = -(-(self.h - r) // d)
+        k0 = seg * self.seg_rows[i]
+        if k0 >= length:
+            return None
+        k1 = min(k0 + self.seg_rows[i], length)
+        j0 = max(k0 - 1, 0)
+        return k0, k1, j0, min(k1, length - 1) - j0 + 1
+
+    def box(self, i: int, r: int, j: int, strip: int) -> Tuple[int, int, int]:
+        """(image row, first column, width) of the TMA box of chain row j;
+        columns outside the image read zeros."""
+        d = self.dilations[i]
+        return r + j * d, strip * self.tpx - d, self.tpx + 2 * d
+
+    def loads_per_input(self) -> float:
+        """Mean times an input element crosses from L2 into an SM, per
+        dilation: box elements loaded over n_dil x B x H x W (the channel
+        slices cancel).  Exact for these units."""
+        cols = 0
+        for i, strip, r, seg, sl, b in self.blocks():
+            if sl or b:
+                continue
+            ch = self.chain(i, r, seg)
+            if ch is not None:
+                cols += ch[3] * (self.tpx + 2 * self.dilations[i])
+        return cols / (len(self.dilations) * self.h * self.w)
+
+    @property
+    def max_loads(self) -> int:
+        """The most times one input element crosses into an SM for one
+        dilation: two strips share a halo column (d <= 18 < tpx), and two
+        segments an edge row."""
+        return (2 if self.strips > 1 else 1) * (2 if max(self.nseg) > 1 else 1)
+
+
+def dw_plan(b: int, h: int, w: int, c: int, dilations: Sequence[int], dtype: torch.dtype,
+            n_embeds: int = 1) -> DwPlan:
+    """K6's launch plan (``madm_dw_plan`` in csrc/dw_branches.cu makes the
+    same choice) for embeds [B, H, W, c / n_embeds]; raises ValueError for
+    what the kernel does not take: 1-4 embeds of a multiple of 32 channels
+    (float32) or 64 (bf16), 1-3 dilations in [1, 18], B <= 65535."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"dw_branches takes float32 or bfloat16 embeds, got {dtype}")
+    sl = DW_SLICE[dtype]
+    dils = tuple(int(d) for d in dilations)
+    if (not 1 <= n_embeds <= 4 or c % n_embeds or (c // n_embeds) % sl or not 1 <= len(dils) <= 3
+            or not all(1 <= d <= DW_MAX_DILATION for d in dils)):
+        raise ValueError(
+            f"dw_branches kernel takes 1-4 embeds of a multiple of {sl} channels ({dtype}) and "
+            f"1-3 dilations in [1, {DW_MAX_DILATION}]; got {n_embeds} embeds, {c} channels, {dils}")
+    if not 1 <= b <= KERNEL_MAX_BATCH:
+        raise ValueError(f"dw_branches kernel takes a batch of 1 to {KERNEL_MAX_BATCH}, got {b}")
+    if dtype == torch.float32:
+        strips = -(-w // TILE_COLS)
+        if h * strips > 2 ** 31 - 1 or len(dils) * (c // sl) > 65535:
+            raise ValueError(f"dw_branches: {b} x {h} x {w} x {c} is too large for the grid")
+        return DwPlan("simt", TILE_COLS, 256, 0, 0, (h * strips, len(dils) * (c // sl), b), strips,
+                      c // sl, (), (), (), (), dils, b, h, w)
+    strips, slices = -(-w // DW_TPX), c // sl
+    res = tuple(min(d, h) for d in dils)
+    lens = [max(1, -(-h // d)) for d in dils]  # the longest chain of each dilation: residue 0
+    base = sum(b * slices * strips * r for r in res)  # 0 for an empty image: no units
+    want = 1 if base >= DW_TARGET_UNITS or base == 0 else -(-DW_TARGET_UNITS // base)
+    seg_rows = tuple(-(-n // min(want, max(1, n // DW_MIN_SEG_ROWS))) for n in lens)
+    nsegs = tuple(-(-n // s) for n, s in zip(lens, seg_rows))
+    units = tuple(b * slices * strips * r * s for r, s in zip(res, nsegs))
+    if sum(units) > 2 ** 31 - 1:
+        raise ValueError(f"dw_branches: {b} x {h} x {w} x {c} is too many units for the grid")
+    return DwPlan("chains_tma", DW_TPX, DW_THREADS, DW_SLOTS, DW_SMEM, (sum(units), 1, 1), strips, slices,
+                  nsegs, seg_rows, units, res, dils, b, h, w)
+
+
+def dw_maps(b: int, h: int, w: int, ec: int, n_embeds: int,
+            dilations: Sequence[int]) -> Tuple[Tuple[str, Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]], ...]:
+    """(name, dims, byte strides, box) of each tensor map the bf16 body
+    encodes (``launch_chain`` in csrc/dw_branches.cu), innermost first: embed
+    e as dilation i reads it, rank 4 (EC, W, H, B), boxes [64 channels][128 +
+    2 d pixels], unswizzled (K2's map, ``hopper::embed_map``)."""
+    return tuple((f"embed{e}/dilation{i}", (ec, w, h, b), (2 * ec, 2 * ec * w, 2 * ec * w * h),
+                  (64, DW_TPX + 2 * d, 1, 1))
+                 for i, d in enumerate(dilations) for e in range(n_embeds))
 
 
 def dw_branches_reference(embeds: Sequence[torch.Tensor], dw_w, scale, bias,
@@ -327,20 +471,38 @@ def dw_branches_reference(embeds: Sequence[torch.Tensor], dw_w, scale, bias,
     return tuple(outs)
 
 
+def _dw_lib() -> ctypes.CDLL:
+    """K6's library, its C functions typed once."""
+    lib = kernels.load("dw_branches")
+    if lib.madm_dw_branches.argtypes is None:
+        lib.madm_dw_branches.restype = ctypes.c_int
+        lib.madm_dw_branches.argtypes = (
+            [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.madm_dw_plan.restype = None
+        lib.madm_dw_plan.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+                                     + [ctypes.POINTER(ctypes.c_int)])
+    return lib
+
+
+def dw_c_plan(b: int, h: int, w: int, ec: int, n_embeds: int, dilations: Sequence[int],
+              dtype: torch.dtype) -> list:
+    """The plan that the C library computes for a shape (needs the built
+    library, so a machine with CUDA): the list ``DwPlan.c_plan`` gives."""
+    out = (ctypes.c_int * 19)()
+    dils = (ctypes.c_int * len(dilations))(*[int(d) for d in dilations])
+    _dw_lib().madm_dw_plan(_DTYPES[dtype], b, h, w, ec, n_embeds, len(dilations), dils, out)
+    return list(out)
+
+
 def _dw_launch(embeds, dw_w, scale, bias, dilations):
     e0 = embeds[0]
     dt = e0.dtype
     b, h, w, ec = e0.shape
     n, n_dil = len(embeds), len(dilations)
     c = n * ec
-    if dt not in _DTYPES:
-        raise ValueError(f"dw_branches takes float32 or bfloat16 embeds, got {dt}")
-    if (not 1 <= n <= 4 or ec % DW_SLICE[dt] or not 1 <= n_dil <= 3
-            or not all(1 <= d <= DW_MAX_DILATION for d in dilations)):
-        raise ValueError(
-            f"dw_branches kernel takes 1-4 embeds of a multiple of {DW_SLICE[dt]} channels "
-            f"({dt}) and 1-3 dilations in [1, {DW_MAX_DILATION}]; got {n} x {ec}, {tuple(dilations)}"
-        )
+    dw_plan(b, h, w, c, dilations, dt, n)
     if any(e.shape != e0.shape or e.dtype != dt or e.device != e0.device for e in embeds):
         raise ValueError("dw_branches: embeds differ in shape, dtype or device")
     if not e0.is_cuda:
@@ -352,25 +514,19 @@ def _dw_launch(embeds, dw_w, scale, bias, dilations):
             or tuple(bias.shape) != (n_dil, c):
         raise ValueError(f"dw_branches weight shapes do not match {n_dil} dilations, C={c}")
     embeds = [e.contiguous() for e in embeds]
-    if any(e.data_ptr() % 16 for e in embeds):  # the kernel reads 16 bytes per load
+    if any(e.data_ptr() % 16 for e in embeds):  # 16-byte loads (float32) and TMA boxes (bf16)
         raise ValueError("dw_branches kernel needs 16-byte aligned embeds")
     outs = tuple(torch.empty((b, h, w, c), device=dev, dtype=dt) for _ in dilations)
     if outs[0].numel() == 0:
         return outs
-    lib = kernels.load("dw_branches")
-    fn = lib.madm_dw_branches
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                                              ctypes.POINTER(ctypes.c_int)]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib = _dw_lib()
     ptrs = (ctypes.c_void_p * n)(*[e.data_ptr() for e in embeds])
     out_ptrs = (ctypes.c_void_p * n_dil)(*[o.data_ptr() for o in outs])
     dils = (ctypes.c_int * n_dil)(*[int(d) for d in dilations])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], ptrs, n, dw_w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 out_ptrs, n_dil, dils, b, h, w, ec, stream)
+        err = lib.madm_dw_branches(_DTYPES[dt], ptrs, n, dw_w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                   out_ptrs, n_dil, dils, b, h, w, ec, stream)
     kernels.check(lib, err, "dw_branches launch")
     dw_branches.launches += 1
     return outs
@@ -390,6 +546,60 @@ dw_branches.launches = 0
 
 # ------------------------------------------------------------------- K7
 ARGMAX_MAX_CLASSES = 32  # the kernel pads the classes to 16 or 32
+ARGMAX_TILE = 64  # pixels of a bf16 tile: one wgmma's rows
+ARGMAX_THREADS = 128 + 32  # one consumer warpgroup, one producer warp
+ARGMAX_MAX_STAGES = 4
+
+
+@dataclass(frozen=True)
+class ArgmaxPlan:
+    """How K7 runs a call.  ``body`` "tma_wgmma" (bf16): ``grid`` persistent
+    blocks walk ``tiles`` tiles of 64 pixels (block i takes tiles i, i +
+    grid, ...) through ``stages`` stages of [64][C] bf16, against conv_seg's
+    weights as one [2 ``ncp``][C] bf16 operand (w_hi, w_lo); "simt"
+    (float32): warps of 64 / ``ncp`` pixel groups, at most 2 blocks an SM."""
+    body: str
+    ncp: int
+    threads: int
+    stages: int
+    smem: int
+    grid: int
+    tiles: int
+
+    def c_plan(self) -> list:
+        """The plan as ``madm_matmul_argmax_plan`` in csrc/matmul_argmax.cu writes it."""
+        return [int(self.body == "tma_wgmma"), self.ncp, self.threads, self.stages, self.smem, self.grid,
+                self.tiles]
+
+
+def argmax_plan(pixels: int, c: int, nc: int, dtype: torch.dtype) -> ArgmaxPlan:
+    """K7's launch plan (``madm_matmul_argmax_plan`` in csrc/matmul_argmax.cu
+    makes the same choice); raises ValueError for what the kernel does not
+    take: 1-32 classes; bf16 x of a multiple of 64 channels with two stages
+    of a 64-pixel tile in shared memory (C <= 576 at 17-32 classes, 704 at
+    1-16) and fewer than 2^31 pixels; float32 x of a multiple of 4 channels
+    whose padded weights fit 200 KB."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"matmul_argmax takes float32 or bfloat16 x, got {dtype}")
+    if not 1 <= nc <= ARGMAX_MAX_CLASSES:
+        raise ValueError(f"matmul_argmax kernel takes 1-{ARGMAX_MAX_CLASSES} classes, got {nc}")
+    ncp = 16 if nc <= 16 else 32
+    if dtype == torch.float32:
+        if c % 4 or c * (ncp + 4) * 4 > 200 * 1024:
+            raise ValueError(f"matmul_argmax kernel takes float32 x of a multiple of 4 channels, at most "
+                             f"{200 * 1024 // ((ncp + 4) * 4)}; got {c}")
+        groups = -(-pixels // (64 // ncp))
+        return ArgmaxPlan("simt", ncp, 256, 0, c * (ncp + 4) * 4, min(-(-groups // 8), 2 * SM_COUNT), 0)
+    w_bytes, stage_bytes = 2 * ncp * c * 2, ARGMAX_TILE * c * 2
+    stages = min(ARGMAX_MAX_STAGES, (SMEM_LIMIT - 1024 - w_bytes - 16 * ARGMAX_MAX_STAGES) // stage_bytes)
+    if c % 64 or c <= 0 or stages < 2:
+        raise ValueError(f"matmul_argmax kernel takes bf16 x of a multiple of 64 channels with two "
+                         f"64-pixel stages in shared memory; got {c} channels, {nc} classes")
+    if pixels >= 2 ** 31:
+        raise ValueError(f"matmul_argmax kernel takes fewer than 2^31 pixels, got {pixels}")
+    tiles = -(-pixels // ARGMAX_TILE)
+    return ArgmaxPlan("tma_wgmma", ncp, ARGMAX_THREADS, stages,
+                      1024 + w_bytes + stages * stage_bytes + 16 * stages, min(tiles, SM_COUNT), tiles)
 
 
 def matmul_argmax_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -400,34 +610,50 @@ def matmul_argmax_reference(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
     return argmax_classes(x.float() @ w.float() + bias.float(), dim=-1)
 
 
+def _argmax_lib() -> ctypes.CDLL:
+    """K7's library, its C functions typed once."""
+    lib = kernels.load("matmul_argmax")
+    if lib.madm_matmul_argmax.argtypes is None:
+        lib.madm_matmul_argmax.restype = ctypes.c_int
+        lib.madm_matmul_argmax.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                                           + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.madm_matmul_argmax_plan.restype = None
+        lib.madm_matmul_argmax_plan.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def argmax_c_plan(pixels: int, c: int, nc: int, dtype: torch.dtype) -> list:
+    """The plan that the C library computes (needs the built library): the
+    list ``ArgmaxPlan.c_plan`` gives."""
+    out = (ctypes.c_int * 7)()
+    _argmax_lib().madm_matmul_argmax_plan(_DTYPES[dtype], pixels, c, nc, out)
+    return list(out)
+
+
 def _argmax_launch(x, w, bias):
     dt = x.dtype
     *lead, c = x.shape
     nc = w.shape[-1]
-    if dt not in _DTYPES:
-        raise ValueError(f"matmul_argmax takes float32 or bfloat16 x, got {dt}")
-    if tuple(w.shape) != (c, nc) or tuple(bias.shape) != (nc,) or not 1 <= nc <= ARGMAX_MAX_CLASSES:
+    if tuple(w.shape) != (c, nc) or tuple(bias.shape) != (nc,):
         raise ValueError(f"matmul_argmax: w {tuple(w.shape)} and bias {tuple(bias.shape)} do not "
-                         f"fit x's {c} channels, or more than {ARGMAX_MAX_CLASSES} classes")
+                         f"fit x's {c} channels")
+    argmax_plan(math.prod(lead), c, nc, dt)
     if not x.is_cuda:
         raise ValueError(f"matmul_argmax kernel needs a CUDA tensor, got {x.device}")
     x = x.contiguous()
-    if (c * x.element_size()) % 16 or x.data_ptr() % 16:  # 16-byte loads of each pixel
+    if x.data_ptr() % 16:  # 16-byte loads (float32) and TMA boxes (bf16)
         raise ValueError("matmul_argmax kernel needs 16-byte aligned pixels")
     f32 = dict(device=x.device, dtype=torch.float32)
     w, bias = w.to(**f32).contiguous(), bias.to(**f32).contiguous()
     out = torch.empty(lead, device=x.device, dtype=torch.int32)
     if out.numel() == 0:
         return out
-    lib = kernels.load("matmul_argmax")
-    fn = lib.madm_matmul_argmax
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    lib = _argmax_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_DTYPES[dt], x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                 out.numel(), c, nc, stream)
+        err = lib.madm_matmul_argmax(_DTYPES[dt], x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                                     out.numel(), c, nc, stream)
     kernels.check(lib, err, "matmul_argmax launch")
     matmul_argmax.launches += 1
     return out

@@ -46,8 +46,8 @@ FAMILIES = (  # first match wins; lower-case substrings of kernel names
     ("flash_attention_backward (K3; K5's bf16 body)",
      ("dkdv_", "dq_tma", "dq_simt", "delta_kernel", "bwd_prep")),
     ("aspp_fused (K2)", ("aspp_fused",)),
-    ("dw_branches (K6)", ("dw_branches",)),
-    ("matmul_argmax (K7)", ("matmul_argmax",)),
+    ("dw_branches (K6)", ("dw_branches", "dw_chain")),
+    ("matmul_argmax (K7)", ("matmul_argmax", "argmax_wgmma")),
     ("optimizer (multi-tensor)", ("multi_tensor", "adam")),
     ("convolution", ("fprop", "conv", "implicit", "winograd", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "cublas", "xmma")),
