@@ -62,7 +62,18 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    width in bf16 and model.flash_pack=True on a synthetic PNG dataset of 4
    images at 512x1024: two iterations at --bs 2, eval, checkpoints (s/iter,
    metrics, files, launch counts), then --eval-only --init-from the best
-   checkpoint, which must give the same metrics.
+   checkpoint, which must give the same metrics;
+10. real-weight loading: a seeded full-width bf16 trainable model of the
+   depth config with LoRA adapters default_r16_a16 and Depth_r16_a8 (B drawn
+   nonzero, the UNet rounded to fp16) writes an SD snapshot (UNet F16
+   safetensors, VAE fp32 .bin, CLIP ViT-L/14 text encoder BF16 safetensors)
+   and a released .pth in the reference's layout; uncond_inputs on CUDA
+   against the CPU; a model built through the loaders (as the CLI builds
+   it) equal to the writer tensor by tensor; its 'aspp' ids with the Depth
+   adapter equal to the writer's (K1 34, K2 1); one train step with the
+   adapters (K1 104, K3 64; every adapter gradient finite and nonzero);
+   then ``--eval-only --init-from released.pth --sd-snapshot`` through the
+   CLI, whose metrics must equal ``do_test`` on the writer.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -83,8 +94,10 @@ import torch
 import torch.nn.functional as F
 
 from madm_torch import kernels
+from madm_torch.checkpoint import Checkpointer, reference_state_dict, save_sd_snapshot
 from madm_torch.device import card_line
 from madm_torch.evaluation import DSECSemSegEvaluator, inference_on_dataset, make_slide_eval_fn
+from madm_torch.models.clip_text import CLIPTextTransformer, compute_uncond_inputs
 from madm_torch.models.daformer import argmax_classes
 from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.ops.aspp import (
@@ -1230,6 +1243,175 @@ def run_cli(card):
             raise AssertionError(f"--eval-only gave {again}, the training run's eval {results}")
 
 
+# phase 10: the adapters of the loaded model, and what its passes launch
+REAL_LORA = "default_r16_a16,Depth_r16_a8"
+
+
+def clip_text_state(gen):
+    """A seeded HF ``CLIPTextModel`` state dict at CLIP ViT-L/14 text width
+    (49408 x 768, 12 layers), rounded to bf16 and held in fp32 on the CPU:
+    embeddings N(0, 0.02^2), linears N(0, 1/fan_in), biases N(0, 0.02^2),
+    LayerNorm weights 1 + N(0, 0.1^2)."""
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in CLIPTextTransformer().state_dict().items()}
+    out = {"text_model.embeddings.position_ids": torch.arange(77)[None]}
+    for k, shape in shapes.items():
+        std = (shape[1] ** -0.5 if len(shape) == 2 and "embedding" not in k else 0.02 if "norm" not in k
+               else 0.1)
+        w = torch.randn(shape, generator=gen, device="cuda") * std
+        if "norm" in k and k.endswith("weight"):
+            w += 1.0
+        out["text_model." + k] = w.bfloat16().float().cpu()
+    return out
+
+
+def run_real_weights(card):
+    """Phase 10: real-weight loading at full width on files this phase
+    writes (no snapshot or checkpoint is in the repository).  Returns the
+    launch counts of the loaded model's eval pass and train step."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from madm_torch.main import build_model_and_state, build_parser, do_test, main as cli_main, setup
+
+    logging.basicConfig(level=logging.WARNING)
+    t_all = t = time.perf_counter()
+
+    def lap():
+        nonlocal t
+        now = time.perf_counter()
+        dt, t = now - t, now
+        return f"{dt:.1f} s [{card}]"
+
+    with tempfile.TemporaryDirectory(prefix="madm_weights_") as tmp:
+        tmp = Path(tmp)
+        root = tmp / "data"
+        root.mkdir()
+        write_png_dataset(root)
+
+        def argv(out, *extra):
+            return ["--config-file", CLI_CONFIG, "--source_root", str(root), "--target_root", str(root),
+                    "--output", str(tmp / out), "--lora_configs", REAL_LORA, *extra,
+                    f"dataloader.train.dataset.json_path={str(root / 'train.json')!r}",
+                    f"dataloader.test.dataset.json_path={str(root / 'test.json')!r}"]
+
+        # 1. the writer: the CLI's model on seeded random weights, B nonzero,
+        # the UNet's fp32 masters rounded to fp16 (so the F16 file is exact)
+        parser = build_parser()
+        wargs = parser.parse_args(argv("writer"))
+        wcfg = setup(wargs)
+        writer, _, _ = build_model_and_state(wcfg, wargs)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+        with torch.no_grad():
+            for adapter in writer.lora.values():
+                for _, site in adapter.sites():
+                    site.lora_B.copy_(torch.randn(site.lora_B.shape, generator=gen, device="cuda") * 0.01)
+            for p in writer.unet.parameters():
+                p.copy_(p.half().float())
+            for k, v in writer.state_dict().items():  # a teacher and BN statistics of their own
+                if k.startswith("ema.") and v.is_floating_point():
+                    v.add_(torch.randn(v.shape, generator=gen, device="cuda") * 1e-3)
+                elif k.endswith(("running_mean", "running_var")):
+                    v.add_(torch.rand(v.shape, generator=gen, device="cuda") * 0.1)
+            clip = clip_text_state(gen)
+            writer.uncond_inputs.copy_(compute_uncond_inputs(clip, device="cuda"))
+        torch.cuda.synchronize()
+        log(f"real weights 1: writer built (depth config, full width, bf16 compute, adapters "
+            f"{REAL_LORA}, B ~ N(0, 0.01^2)) in {lap()}")
+        snap, pth = tmp / "sd", tmp / "released.pth"
+        save_sd_snapshot(str(snap), writer, clip, unet_dtype=torch.float16, text_dtype=torch.bfloat16)
+        ref_sd = reference_state_dict(writer)
+        torch.save({"model": ref_sd, "iteration": 0}, pth)
+        sizes = {str(f.relative_to(tmp)): f.stat().st_size for f in sorted(tmp.rglob("*"))
+                 if f.is_file() and f.suffix in (".safetensors", ".bin", ".pth")}
+        log(f"real weights 1: wrote {sizes} bytes ({len(ref_sd)} keys in released.pth, "
+            f"{sum(k.count('.lora_') for k in ref_sd)} adapter tensors) in {lap()}")
+        del ref_sd
+
+        # 2. uncond_inputs: CUDA against the CPU (fp32, TF32 off)
+        cpu_uncond = compute_uncond_inputs(clip, device="cpu")
+        err = (writer.uncond_inputs.cpu() - cpu_uncond).abs().max().item()
+        tol = 1e-4 * max(1.0, cpu_uncond.abs().max().item())
+        log(f"real weights 2: uncond_inputs [1,77,768] CUDA vs CPU max_abs_err={err:.3e} (tol {tol:.3e}, "
+            f"max |x| {cpu_uncond.abs().max().item():.3f}) in {lap()}")
+        if not err <= tol:
+            raise AssertionError("uncond_inputs on CUDA disagree with the CPU")
+
+        # 3. a fresh model through the loaders, as the CLI builds it
+        largs = parser.parse_args(argv("loaded", "--sd-snapshot", str(snap)))
+        loaded_cfg = setup(largs)
+        _, state, _ = build_model_and_state(loaded_cfg, largs)
+        state, _ = Checkpointer(str(tmp / "loaded")).resume_or_load(state, init_from=str(pth), resume=False)
+        model = state.model
+        want, got = writer.state_dict(), model.state_dict()
+        differ = [k for k in want if k not in got or not torch.equal(want[k], got[k])]
+        torch.cuda.synchronize()
+        log(f"real weights 3: loaded model (snapshot + released.pth) equals the writer on "
+            f"{len(want) - len(differ)} of {len(want)} tensors in {lap()}")
+        if differ or want.keys() != got.keys():
+            raise AssertionError(f"loaded state differs from the writer's at {differ[:10]}")
+
+        # 4. 'aspp' ids with the Depth adapter: the same weights, so the same ids
+        images = torch.rand(1, 512, 512, 3, device="cuda", generator=gen)
+        ids_w = writer.eval_forward_ids(images, eval_head="aspp", lora_name="Depth")
+        reset_counts()
+        ids = model.eval_forward_ids(images, eval_head="aspp", lora_name="Depth")
+        torch.cuda.synchronize()
+        eval_counts = launch_counts()
+        check_ids(ids, (1, 512, 512), model.cfg.num_classes)
+        moved = (ids != model.eval_forward_ids(images, eval_head="aspp")).double().mean().item()
+        lap()
+        merge_ms = cuda_ms(lambda: model.lora_weights("Depth"), reps=10)
+        pass_ms = {name: cuda_ms(lambda: model.eval_forward_ids(images, eval_head="aspp", lora_name=name),
+                                 reps=5) for name in ("Depth", None)}
+        log(f"real weights 4: 'aspp' ids with lora_name='Depth' equal the writer's: {torch.equal(ids, ids_w)}; "
+            f"the adapter changes {moved:.4f} of them; launches {eval_counts}; the merge of its 128 sites "
+            f"{merge_ms:.3f} ms, the B=1 pass {pass_ms['Depth']:.2f} ms with it and {pass_ms[None]:.2f} "
+            f"without (5 passes each); {lap()}")
+        if not torch.equal(ids, ids_w) or eval_counts != EVAL_LAUNCHES["aspp"]:
+            raise AssertionError(f"loaded model's ids differ from the writer's or launches {eval_counts}")
+
+        # 5. one train step of the loaded state with the adapters
+        batches = synthetic_batches(1, model.cfg.crop_size, model.cfg.num_classes, gen)
+        reset_counts()
+        m = train(state, batches, steps=1, generator=gen)[0]
+        torch.cuda.synchronize()
+        train_counts = launch_counts()
+        grads = {n: p.grad for n, p in model.named_parameters() if n.startswith("lora.")}
+        bad = [n for n, g in grads.items() if g is None or not torch.isfinite(g).all() or not g.any()]
+        log(f"real weights 5: train step {state.step} with adapters: {len(grads) - len(bad)} of {len(grads)} "
+            f"adapter tensors with a finite nonzero gradient; launches {train_counts}; "
+            + " ".join(f"{k}={v:.5f}" for k, v in m.items()) + f"; {lap()}")
+        if bad or not all(math.isfinite(v) for v in m.values()) or train_counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"LoRA train step: gradients {bad[:10]}, metrics {m}, launches {train_counts}")
+        del state, model, m, grads, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. the CLI's --eval-only on the released files, against do_test on the writer
+        want_metrics = do_test(wcfg, writer, None, wargs)
+        lap()
+        del writer
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts()
+        got_metrics = cli_main(argv("cli", "--sd-snapshot", str(snap), "--eval-only",
+                                    "--init-from", str(pth)))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"real weights 6: CLI --eval-only --init-from released.pth --sd-snapshot --lora_configs "
+            f"{REAL_LORA}: {({k: float(v) for k, v in got_metrics.items()})}; the writer's do_test "
+            f"{({k: float(v) for k, v in want_metrics.items()})}; launches {counts}; {lap()}")
+        expected = {k: 4 * v for k, v in EVAL_LAUNCHES["aspp"].items()}
+        if {k: float(v) for k, v in got_metrics.items()} != {k: float(v) for k, v in want_metrics.items()}:
+            raise AssertionError("the CLI's metrics on the released files differ from the writer's")
+        if counts != expected:
+            raise AssertionError(f"CLI eval-only launched {counts}; expected {expected}")
+    log(f"phase 10 steps: {time.perf_counter() - t_all:.1f} s in all [{card}]")
+    return eval_counts, train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -1288,6 +1470,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_cli(card)
     phase_done("9 (the CLI)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_real_weights(card)
+    phase_done("10 (real-weight loading)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)

@@ -5,16 +5,18 @@ A checkpoint is one ``.pth`` file written by ``torch.save``: ``{"format":
 "madm_torch", "model": state_dict, "optimizer": AdamW state_dict, "step":
 int}``.  The model's ``state_dict`` has the reference key names and holds the
 EMA teacher (``ema.*``) and the head's BN statistics (``running_mean`` /
-``running_var`` of the student and the teacher); the frozen VAE is kept too
-(the JAX package leaves it out because it re-materialises from the SD
-snapshot, which the port cannot load yet, ROADMAP §A2).  Key behaviours as in
-the JAX package:
+``running_var`` of the student and the teacher); the frozen VAE is kept too,
+so that a checkpoint restores a run without the SD snapshot it started from
+(the JAX package leaves the VAE out and re-materialises it from the
+snapshot).  Key behaviours as in the JAX package:
 
 - ``resume_or_load(init_from, resume)``: resume from ``last_checkpoint`` in
-  the output dir if present, else initialise from ``init_from``, a
-  checkpoint of the port or an output dir holding one (``main.py:331-337``).
-  An orbax directory of the JAX package or a released reference ``.pth``
-  raises: reading them waits for ROADMAP §A2.
+  the output dir if present, else initialise from ``init_from``: a
+  checkpoint of the port, an output dir holding one, or a released MADM
+  ``.pth`` of the reference, which goes through ``convert_madm_pth`` and is
+  overlaid on the model (``merge_into_model``; the optimizer and the step
+  stay as they are; ``main.py:331-337``).  An orbax directory of the JAX
+  package raises: reading it needs orbax, which the port does not use.
 - ``PeriodicCheckpointer``: save ``model_{iter:07d}.pth`` every ``period``
   iterations and at the last, keep ``max_to_keep``.
 - ``BestCheckpointer``: track a metric and keep ``model_best.pth``.
@@ -28,11 +30,11 @@ from typing import Dict, Optional
 
 import torch
 
+from .converter import convert_madm_pth, merge_into_model
+
 logger = logging.getLogger(__name__)
 
 FORMAT = "madm_torch"
-_NOT_PORTED = ("reading it needs the checkpoint converter, which waits for ROADMAP §A2 "
-               "(an SD-v1.4 snapshot and a MADM .pth in the repository)")
 
 
 class Checkpointer:
@@ -85,20 +87,24 @@ class Checkpointer:
                     return src.load(name, state), False
                 if name is not None or os.path.exists(os.path.join(init_from, "_METADATA")):
                     raise NotImplementedError(
-                        f"{init_from} is an orbax checkpoint of the JAX package: {_NOT_PORTED}")
+                        f"{init_from} is an orbax checkpoint of the JAX package: reading it needs "
+                        "orbax, which madm_torch does not use")
                 raise FileNotFoundError(f"no checkpoint under {init_from}")
             return load_checkpoint(init_from, state), False
         return state, False
 
 
 def load_checkpoint(path: str, state):
-    """Restore a checkpoint file of the port into ``state`` in place: the
-    model (student, EMA teacher, BN statistics), the optimizer and the step.
-    Anything else raises."""
-    ckpt = torch.load(path, map_location=state.model.device, weights_only=True)
+    """Restore a checkpoint file into ``state`` in place.  A file of the port
+    restores the model (student, EMA teacher, BN statistics), the optimizer
+    and the step; a released reference ``.pth`` overlays its weights on the
+    model (JAX ``resume_or_load``, ``checkpointer.py:105-116``).  Files are
+    unpickled with ``weights_only=True``."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and ckpt.get("format") == FORMAT):
-        raise NotImplementedError(f"{path} is not a madm_torch checkpoint (a released reference "
-                                  f".pth?): {_NOT_PORTED}")
+        logger.info(f"{path} is not a madm_torch checkpoint: converting it as a released MADM .pth")
+        merge_into_model(state.model, convert_madm_pth(ckpt))
+        return state
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])

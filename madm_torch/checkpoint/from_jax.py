@@ -2,11 +2,13 @@
 
 The inverse of the torch -> JAX mapping the JAX package's checkpoint
 converter applies (``convert_unet_state``, ``convert_vae_state``,
-``convert_projections``, ``convert_daformer_head``, ``convert_clip_project``),
-restricted to the modules the port holds, so both packages compute the same
-function on the same weights.  Besides ``params`` and ``consts`` it carries
-what a JAX ``TrainState`` adds: the EMA teacher tree (``ema``: projections,
-head, ``clip_project_others``) and the BN statistics ``state.head_bn`` and
+``convert_projections``, ``convert_daformer_head``, ``convert_clip_project``,
+and the peft adapters of ``convert_madm_pth``), restricted to the modules the
+port holds, so both packages compute the same function on the same weights.
+Besides ``params`` (the LoRA adapters ``params['lora']`` among them) and
+``consts`` it carries what a JAX ``TrainState`` adds: the EMA teacher tree
+(``ema``: projections, head, ``clip_project_others``, and ``lora`` where an
+``ema_w_unet`` state has one) and the BN statistics ``state.head_bn`` and
 ``state.ema_head_bn``.  Reads nested dicts of arrays (anything
 ``numpy.asarray`` takes); imports nothing of the JAX package.
 
@@ -14,6 +16,8 @@ Layout transforms (JAX -> torch):
     conv kernel [kh, kw, I, O] -> weight [O, I, kh, kw]   (depthwise: I = 1)
     dense kernel [I, O]        -> weight [O, I]  (UNet proj_in/proj_out: [O, I, 1, 1])
     norm scale / bias          -> weight / bias
+    LoRA lora_a [in, r]        -> lora.<name>.<site>.lora_A [r, in]
+    LoRA lora_b [r, out]       -> lora.<name>.<site>.lora_B [out, r]
     BN mean / var              -> running_mean / running_var (+ num_batches_tracked)
 """
 
@@ -102,6 +106,16 @@ def _projections(tree: Dict[str, Any], prefix: str = "feature_projections") -> D
     return out
 
 
+def _lora(tree: Dict[str, Any], prefix: str = "lora") -> Dict[str, np.ndarray]:
+    out = {}
+    for name, adapter in tree.items():
+        for path, w in _leaves(adapter):
+            site = ".".join(_diffusers(p) for p in path[:-1])
+            leaf = {"lora_a": "lora_A", "lora_b": "lora_B"}[path[-1]]
+            out[f"{prefix}.{name}.{site}.{leaf}"] = w.T
+    return out
+
+
 def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{'params', 'ema', 'state', 'consts'}`` of the JAX ``MADM`` or its
     ``TrainState`` (or any part of them) -> {key: float32 CPU tensor} for
@@ -116,6 +130,7 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_vae(params["vae_decoder"], "decoder", "post_quant_conv"))
     if "unet" in params:
         out.update(_module_tree(params["unet"], "unet", _diffusers))
+    out.update(_lora(params.get("lora", {})))
     for domain, p in params.get("prompt", {}).items():
         out.update({f"prompt.{domain}.{k}": np.asarray(v, np.float32) for k, v in p.items()})
     if "projections" in params:
@@ -127,6 +142,7 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_projections(ema["projections"], "ema.feature_projections"))
     if "head" in ema:
         out.update(_head(ema["head"], state.get("ema_head_bn", {}), "ema.sem_seg_head"))
+    out.update(_lora(ema.get("lora", {}), "ema.lora"))
     if "clip_project_others" in ema:
         out.update({f"ema.clip_project_others.{k}": np.asarray(v, np.float32)
                     for k, v in ema["clip_project_others"].items()})

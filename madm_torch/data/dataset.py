@@ -26,7 +26,7 @@ Host-side re-implementation of ``data/dataset/cross_modality_dataset.py``
 Images decode with PIL only (the JAX package also has a native C++ decoder,
 whose resampling differs).  The FDA and edge-texture ablations
 (``remove_amp``, ``fda_fusion_val``, ``remove_texture``) need ``ops/fda.py``,
-which is not ported (ROADMAP §A6): they raise.
+which is not ported (ROADMAP §A1): they raise.
 
 Output layout is **NHWC float32 in [0, 255]** (converted to [0,1] by the
 loader), labels [H, W] int32.
@@ -114,7 +114,7 @@ class CrossModalityDataset:
             if value is not None:
                 raise NotImplementedError(
                     f"CrossModalityDataset: {name} needs ops/fda.py, which is not ported to "
-                    "madm_torch yet (ROADMAP §A6)")
+                    "madm_torch yet (ROADMAP §A1)")
         # two-stage extras: pl_data_path points at stage-1 generated images
         # parallel to the source labels (reference :278-284); samples gain
         # 'source_pl_data' with the same crop/flip as the source

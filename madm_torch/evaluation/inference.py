@@ -41,31 +41,35 @@ def pad_to_divisible(img: torch.Tensor, divisor: int = 64):
     return img, (h, w)
 
 
-def make_eval_fn(model, eval_with_noise: Optional[int] = None) -> Callable[[torch.Tensor], torch.Tensor]:
+def make_eval_fn(model, eval_with_noise: Optional[int] = None,
+                 lora_name: Optional[str] = None) -> Callable[[torch.Tensor], torch.Tensor]:
     """Single-crop eval: [B, H, W, 3] in [0, 1] -> argmax ids [B, H, W],
-    through the model's eval head (``MADMConfig.eval_head``)."""
+    through the model's eval head (``MADMConfig.eval_head``), with adapter
+    ``lora_name`` merged."""
 
     def eval_fn(images: torch.Tensor) -> torch.Tensor:
         padded, (h, w) = pad_to_divisible(torch.as_tensor(images, device=model.device))
-        return model.eval_forward_ids(padded, eval_with_noise=eval_with_noise)[:, :h, :w]
+        return model.eval_forward_ids(padded, eval_with_noise=eval_with_noise,
+                                      lora_name=lora_name)[:, :h, :w]
 
     return eval_fn
 
 
 def make_slide_eval_fn(model, windows=None, eval_with_noise: Optional[int] = None,
-                       form: str = "batch") -> Callable[[torch.Tensor], torch.Tensor]:
+                       form: str = "batch", lora_name: Optional[str] = None,
+                       ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Sliding-window eval of [B, H, W, 3] images (512x1024 in the
     reference): windows from the image size unless given, ``eval_with_noise``
-    fed to every window (``mtmadise.py:681-682``), the stitched features
-    through one pass of the model's eval head; ``form`` as in
-    ``MADM.slide_backbone_forward`` ('batch', the faster on the card)."""
+    (``mtmadise.py:681-682``) and adapter ``lora_name`` for every window, the
+    stitched features through one pass of the model's eval head; ``form`` as
+    in ``MADM.slide_backbone_forward`` ('batch', the faster on the card)."""
 
     def eval_fn(images: torch.Tensor) -> torch.Tensor:
         x = torch.as_tensor(images, device=model.device)
         t = None if eval_with_noise is None else torch.full((x.shape[0],), int(eval_with_noise),
                                                             device=model.device)
-        stitched = model.slide_backbone_forward(x, windows=windows, timesteps=t,
-                                                form=form)["output_features"]
+        stitched = model.slide_backbone_forward(x, windows=windows, timesteps=t, form=form,
+                                                lora_name=lora_name)["output_features"]
         return model.head_ids(stitched, x.shape[1:3])
 
     return eval_fn
@@ -73,13 +77,15 @@ def make_slide_eval_fn(model, windows=None, eval_with_noise: Optional[int] = Non
 
 def inference_on_dataset(model, loader, evaluator, slide_inference: bool = False,
                          eval_with_noise: Optional[int] = None, warmup: int = 2,
-                         batch: int = 1) -> Dict:
+                         batch: int = 1, lora_name: Optional[str] = None) -> Dict:
     """Run eval over a test loader (any iterable of sample dicts with
     ``target_second_modality`` [1, H, W, 3] in [0, 1] and a label, and a
     length), feed the evaluator, return its metrics.
 
-    Images go in groups of ``batch``; the last group is padded by repeating
-    its last image, and the padding's predictions are thrown away.  Group
+    ``lora_name``: the adapter every pass merges (``do_test``: the target
+    modality's when the model has adapters).  Images go in groups of
+    ``batch``; the last group is padded by repeating its last image, and the
+    padding's predictions are thrown away.  Group
     i+1 is dispatched before group i's predictions are fetched, so that the
     host's work overlaps the card's (CUDA runs asynchronously; the copy to
     the host is the sync point).  Logs the data / compute split per group
@@ -87,9 +93,9 @@ def inference_on_dataset(model, loader, evaluator, slide_inference: bool = False
     (``evaluation/evaluator.py:56-132``)."""
     group = max(1, batch)
     if slide_inference:
-        eval_fn = make_slide_eval_fn(model, eval_with_noise=eval_with_noise)
+        eval_fn = make_slide_eval_fn(model, eval_with_noise=eval_with_noise, lora_name=lora_name)
     else:
-        eval_fn = make_eval_fn(model, eval_with_noise)
+        eval_fn = make_eval_fn(model, eval_with_noise, lora_name)
     evaluator.reset()
     total = len(loader)
     n_groups = (total + group - 1) // group

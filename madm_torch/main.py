@@ -5,6 +5,8 @@ do_test / eval-only).
     python -m madm_torch.main --config-file madm_torch/configs/SemSeg/MTMADISE/mtmadise_cityscapes_rgb_to_depth_11.py \\
         --bs 2 --tag RGB2Depth --source_root ... --target_root ...
     python -m madm_torch.main --config-file ... --eval-only --init-from output/RGB2Depth/model_best.pth
+    python -m madm_torch.main --config-file ... --eval-only --init-from model_RGB2Infrared.pth \\
+        --sd-snapshot <HF SD-v1.4 snapshot dir>   # a released checkpoint of the reference
     python -m madm_torch.main --device cpu --config-file ... <dot-overrides>   # on the CPU
 
 Differences from the JAX launcher:
@@ -13,12 +15,16 @@ Differences from the JAX launcher:
   batches; the CUDA default on a host without a GPU raises, nothing moves to
   the CPU by itself.
 - One process on one device: ``--num_chips`` above 1 and ``--distributed``
-  raise, as do the other flags whose branch the port has not taken
-  (``UNPORTED_FLAGS``: the step ablations of ROADMAP §A6, the model variants
-  of §A11, ``--lora_configs`` with entries, ``--sd-snapshot``).
-- Weights are seeded random (``cfg.train.seed``) until real weights load
-  (ROADMAP §A2); ``--init-from`` and ``--resume`` take the port's
-  checkpoints.
+  raise (ROADMAP §A2), as do the other flags whose branch the port has not
+  taken (``UNPORTED_FLAGS``: the step ablations of ROADMAP §A1, the model
+  variants of §A3).
+- Weights start seeded random (``cfg.train.seed``); ``--sd-snapshot`` (or
+  ``MADM_SD_SNAPSHOT``) overlays an HF SD-v1.4 snapshot's VAE and UNet and,
+  where it has ``text_encoder/``, recomputes ``uncond_inputs`` (and with
+  ``--init_uncond_prompt`` seeds the learned prompts from them);
+  ``--init-from`` and ``--resume`` take the port's checkpoints, and
+  ``--init-from`` also a released MADM ``.pth`` of the reference.
+  ``--lora_configs`` adds LoRA adapters; eval takes the target modality's.
 - ``model.flash_pack=True`` (a dot-override) turns on the packed-head
   attention kernels K4/K5 for the UNet's large self-attentions.
 - The train step returns host floats, so the printer's metrics are those of
@@ -38,10 +44,18 @@ import time
 import numpy as np
 import torch
 
-from .checkpoint import BestCheckpointer, Checkpointer, PeriodicCheckpointer
+from .checkpoint import (
+    BestCheckpointer,
+    Checkpointer,
+    PeriodicCheckpointer,
+    load_sd_snapshot,
+    merge_into_model,
+    snapshot_state_dict,
+)
 from .config import ConfigDict, LazyConfig, auto_scale_workers, instantiate
 from .device import resolve_device
 from .evaluation import inference_on_dataset
+from .models.clip_text import compute_uncond_inputs
 from .models.madm import init_random_
 from .train.train_step import build_train_config, make_train_state, sample_draws, train_step
 from .utils import CommonMetricPrinter, EventStorage, JSONWriter, WriterStack
@@ -57,7 +71,7 @@ UNPORTED_FLAGS = (
     "--finetune_no", "--remove_texture", "--remove_amp", "--slide_training",
     "--final_fuse_vae_decoder_feat", "--mask_prompt_ratio", "--detach_mask_prompt",
     "--prompt_perturbation", "--prompt_confidence", "--rand_prompt_scale", "--without_prompt",
-    "--without_prompt_alpha", "--prompt_seq_len", "--init_uncond_prompt", "--denoise_interval",
+    "--without_prompt_alpha", "--prompt_seq_len", "--denoise_interval",
     "--multi_layer_prompt", "--target_attention_loss", "--attention_select_index",
     "--FD_attention", "--merge_with_pl_data", "--pl_data_path", "--merge_more_target_data",
     "--with_clip", "--concat_corss_attention_feat_to_conv_seg", "--without_vae_encoder_feat",
@@ -74,9 +88,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config-file", required=True)
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--init-from", default="", help="a madm_torch checkpoint (.pth) or output dir")
+    p.add_argument("--init-from", default="",
+                   help="a madm_torch checkpoint (.pth), an output dir, or a released MADM .pth")
     p.add_argument("--sd-snapshot", default=os.environ.get("MADM_SD_SNAPSHOT", ""),
-                   help="HF SD-v1.4 snapshot dir (not ported yet: raises)")
+                   help="HF SD-v1.4 snapshot dir (vae/, unet/, optional text_encoder/)")
     p.add_argument("--output", default="")
     p.add_argument("--tag", default="")
     p.add_argument("--debug", action="store_true")
@@ -90,7 +105,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--target_root", default="")
     p.add_argument("--rare_class_sample", action="store_true")
     p.add_argument("--lora_configs", default=None,
-                   help="comma list like Infrared_r16_a16 ('' disables; entries raise)")
+                   help="comma list like default_r16_a16,Infrared_r16_a16 ('' disables)")
     p.add_argument("--slide_inference", action="store_true")
     p.add_argument("--eval_with_noise", type=int, default=None,
                    help="fixed diffusion timestep at eval (mtmadise.py:681)")
@@ -177,16 +192,11 @@ def refuse_unported(args, parser: argparse.ArgumentParser) -> None:
         dest = by_flag[flag]
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(f"{flag} is not ported to madm_torch yet (ROADMAP §A)")
-    if args.lora_configs and [s for s in args.lora_configs.split(",") if s]:
-        raise NotImplementedError("--lora_configs with entries is not ported to madm_torch yet "
-                                  "(ROADMAP §A1)")
-    if args.sd_snapshot:
-        raise NotImplementedError("--sd-snapshot is not ported to madm_torch yet (ROADMAP §A2)")
     if args.num_chips is not None and args.num_chips > 1:
-        raise NotImplementedError("--num_chips > 1 is not ported to madm_torch yet (ROADMAP §A10)")
+        raise NotImplementedError("--num_chips > 1 is not ported to madm_torch yet (ROADMAP §A2)")
     if args.vae_decoder_loss_type == "L2":
         raise NotImplementedError("--vae_decoder_loss_type L2 is not ported to madm_torch yet "
-                                  "(ROADMAP §A6)")
+                                  "(ROADMAP §A1)")
 
 
 def apply_cli_mutations(cfg, args):
@@ -218,6 +228,8 @@ def apply_cli_mutations(cfg, args):
         cfg.dataloader.train.dataset.rare_class_sample = True
     if args.lora_configs is not None:
         cfg.model.lora_configs = [s for s in args.lora_configs.split(",") if s]
+    if args.init_uncond_prompt:
+        cfg.model.init_uncond_prompt = True
     if args.wandb:
         cfg.train.wandb["enable_writer"] = True
     if args.log_tag:
@@ -296,22 +308,46 @@ def setup(args):
     return cfg
 
 
+def load_snapshot_(model, snapshot_dir: str):
+    """Overlay an SD-v1.4 snapshot's VAE and UNet on ``model``; where it has
+    a text encoder, recompute ``uncond_inputs`` from it (reference
+    ``ldm_diffusers.py:219-243``) and, with ``init_uncond_prompt``, seed
+    each learned ``prompt_embed`` from them (``ldm_base.py:648-650``; JAX
+    ``main.py:420-450``).  The prompt length is always 77 here
+    (``--prompt_seq_len`` is not ported), so no resize is needed."""
+    logger.info(f"loading SD snapshot from {snapshot_dir}")
+    snap = load_sd_snapshot(snapshot_dir)
+    merge_into_model(model, snapshot_state_dict(snap))
+    if "clip_text" not in snap:
+        return model
+    with torch.no_grad():
+        model.uncond_inputs.copy_(compute_uncond_inputs(snap["clip_text"], device=model.device))
+        if model.cfg.init_uncond_prompt:
+            for p in model.prompt.values():
+                p.prompt_embed.copy_(model.uncond_inputs)
+    return model
+
+
 def build_model_and_state(cfg, args):
     """(model, train state, TrainConfig): the model node instantiated as a
     trainable MADM on ``--device`` with seeded random weights
-    (``cfg.train.seed``), and its AdamW state."""
+    (``cfg.train.seed``), the SD snapshot of ``--sd-snapshot`` over them,
+    and its AdamW state."""
     tc = build_train_config(cfg)
     node = ConfigDict(cfg.model)
     node.update(device=args.device, trainable=True)
     model = instantiate(node)
     init_random_(model, torch.Generator(device=model.device).manual_seed(cfg.train.seed))
+    if args.sd_snapshot:
+        load_snapshot_(model, args.sd_snapshot)
     return model, make_train_state(model, tc), tc
 
 
 def do_test(cfg, model, state, args, iteration=0):
     """Evaluate the test loader through ``inference_on_dataset`` (single crop,
-    or ``--slide_inference``); returns the metrics without the per-class
-    entries."""
+    or ``--slide_inference``), with the target modality's adapter when the
+    model has adapters (JAX ``main.py:512``); returns the metrics without the
+    per-class entries."""
     loader = instantiate(cfg.dataloader.test)
     evaluator = instantiate(cfg.dataloader.evaluator)[0]
     evaluator._output_dir = os.path.join(cfg.train.output_dir, f"{iteration:06d}")
@@ -319,7 +355,8 @@ def do_test(cfg, model, state, args, iteration=0):
                        else cfg.model.get("eval_with_noise"))  # mtmadise.py:46,681-682
     results = inference_on_dataset(model, loader, evaluator, slide_inference=args.slide_inference,
                                    eval_with_noise=eval_with_noise,
-                                   batch=int(os.environ.get("MADM_EVAL_BATCH", "1")))
+                                   batch=int(os.environ.get("MADM_EVAL_BATCH", "1")),
+                                   lora_name=model.cfg.target_modality if model.lora_specs else None)
     logger.info(f"eval @ iter {iteration}: {dict(results['sem_seg'])}")
     return {k: v for k, v in results["sem_seg"].items() if not k.startswith(("IoU-", "ACC-"))}
 

@@ -109,10 +109,7 @@ def build_madm(
                          f"(valid UDA knobs: {sorted(_UDA_KEYS)})")
     if extra.get("ema_w_unet"):
         raise NotImplementedError("build_madm: ema_w_unet=True is not ported to madm_torch yet "
-                                  "(ROADMAP §A6)")
-    if lora_configs:
-        raise NotImplementedError(f"build_madm: lora_configs={list(lora_configs)!r} is not ported "
-                                  "to madm_torch yet (ROADMAP §A1); it takes []")
+                                  "(ROADMAP §A1)")
     for name, value, ported in (
             ("unet_block_indices_type", unet_block_indices_type, "after"),
             ("head_fusion", head_fusion, "aspp"),
@@ -137,6 +134,7 @@ def build_madm(
                     "madm_torch trains without rematerialisation")
     cfg = MADMConfig(
         num_classes=num_classes,
+        target_modality=target_modality,
         unet_block_indices=tuple(unet_block_indices),
         out_features=tuple(out_features),
         feature_dims=tuple(feature_dims),
@@ -150,6 +148,7 @@ def build_madm(
         vae_channels=tuple(vae_channels) if vae_channels else None,
         crop_size=tuple(crop_size),
         lora_configs=tuple(lora_configs),
+        init_uncond_prompt=bool(extra.get("init_uncond_prompt", False)),
         slide_training=slide_training,
         eval_head=eval_head,
         flash_pack=flash_pack,

@@ -1,11 +1,12 @@
 """MADM: diffusion feature extractor + DAFormer head (port of
 ``madm_tpu/models/madm.py``: the eval passes, single-crop and sliding-window,
-with their four eval heads, and the shipped branches of the train-side
-backbone and head).
+with their four eval heads, the shipped branches of the train-side backbone
+and head, and LoRA adapters).
 
 One ``nn.Module`` holds every weight under checkpoint-style names (``vae``,
 ``unet``, ``prompt.clip_project_rgb``, ``feature_projections``,
-``sem_seg_head``) plus the constants ``uncond_inputs`` and ``shared_noise``.
+``sem_seg_head``, the adapters ``lora.<name>``) plus the constants
+``uncond_inputs`` and ``shared_noise``.
 Public inputs and outputs keep the JAX layout: images NHWC [B, H, W, 3] in
 [0, 1], logits NHWC, ids [B, H, W] int32.
 
@@ -16,6 +17,11 @@ and kernels K1/K3 run in it; the frozen VAE is kept in the compute dtype.
 It also holds the EMA teacher's copies (``ema.feature_projections``,
 ``ema.sem_seg_head`` with its BN statistics, ``ema.clip_project_others``).
 Eval passes read the student, never the teacher, as JAX's read ``params``.
+
+``lora_name`` on a pass merges that adapter into the UNet's attention
+projections for the pass alone (``sd.lora.merge_lora``, functionally, in
+fp32, then cast as the masters are; JAX ``madm.py:703-708``).  The adapters
+stay fp32 in an eval model too, whose bf16 weights are then rounded once.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ..ops import aspp
 from . import prompt as prompt_lib
 from .daformer import DAFormerHead, argmax_classes, resize_bilinear
 from .projections import MultiScaleProjection
+from .sd import lora as lora_lib
 from .sd import unet as unet_lib
 from .sd import vae as vae_lib
 from .sd.layers import GroupNorm
@@ -41,8 +48,7 @@ from .sd.scheduler import add_noise, shared_noise
 
 # MADMConfig fields of the JAX package whose other branches the port has not
 # taken yet, with the one value it takes; setting another raises
-_UNPORTED = {"finetune_unet": "all", "lora_configs": (), "ema_w_unet": False,
-             "slide_training": False}
+_UNPORTED = {"finetune_unet": "all", "ema_w_unet": False, "slide_training": False}
 # eval heads of ``eval_forward_ids`` ('auto': 'aspp' where the head fits it, else 'none')
 EVAL_HEADS = ("auto", "aspp", "argmax", "full", "none")
 
@@ -54,6 +60,7 @@ class MADMConfig:
     s0+s3/s4/s5, head 256)."""
 
     num_classes: int = 11
+    target_modality: str = "Depth"  # the adapter that eval and the target passes take
     unet_block_indices: Tuple[int, ...] = (5, 8, 11)
     out_features: Tuple[str, ...] = ("s0", "s3", "s4", "s5")
     feature_dims: Tuple[int, ...] = (3, 320, 640, 1280)
@@ -66,7 +73,10 @@ class MADMConfig:
     unet_channels: Optional[Tuple[int, ...]] = None  # None: SD-v1.4 widths
     vae_channels: Optional[Tuple[int, ...]] = None
     crop_size: Tuple[int, int] = (512, 512)
-    lora_configs: Tuple[str, ...] = ()
+    lora_configs: Tuple[str, ...] = ()  # e.g. ('default_r16_a16', 'Depth_r16_a8')
+    # seed each learned prompt_embed from uncond_inputs when an SD snapshot's
+    # text encoder recomputes them (madm_torch.main; reference ldm_base.py:648-650)
+    init_uncond_prompt: bool = False
     ema_w_unet: bool = False
     slide_training: bool = False
     # the eval head of eval_forward_ids (the JAX package's MADM_FUSED_HEAD):
@@ -85,6 +95,7 @@ class MADMConfig:
                 raise NotImplementedError(f"MADMConfig.{name} is not ported to madm_torch yet")
         if self.eval_head not in EVAL_HEADS:
             raise ValueError(f"MADMConfig.eval_head {self.eval_head!r} is not one of {EVAL_HEADS}")
+        lora_lib.parse_lora_configs(self.lora_configs)
 
     @property
     def latent_size(self) -> Tuple[int, int]:
@@ -98,8 +109,9 @@ class MADMConfig:
 def trainable_parameters(model: "MADM") -> List[Tuple[str, nn.Parameter]]:
     """(name, parameter) of everything the optimizer updates: the UNet
     (``finetune_unet='all'``) but ``conv_norm_out``/``conv_out``, which lie
-    downstream of the last tap, and the prompts, projections and head.  The
-    VAE and the EMA copies are frozen (the JAX package's ``split_trainable``)."""
+    downstream of the last tap, the LoRA adapters, and the prompts,
+    projections and head.  The VAE and the EMA copies are frozen (the JAX
+    package's ``split_trainable``)."""
     frozen = ("vae.", "ema.", "unet.conv_norm_out.", "unet.conv_out.")
     return [(n, p) for n, p in model.named_parameters() if not n.startswith(frozen)]
 
@@ -130,6 +142,10 @@ class MADM(nn.Module):
                 cfg.feature_dims, cfg.projection_dim, cfg.out_features)
             self.sem_seg_head = DAFormerHead(cfg.projection_dim, cfg.in_keys, cfg.num_classes,
                                              channels=cfg.head_channels)
+            self.lora_specs = lora_lib.parse_lora_configs(cfg.lora_configs)
+            if self.lora_specs:
+                self.lora = nn.ModuleDict({name: lora_lib.LoRAAdapter(self.unet, spec["rank"])
+                                           for name, spec in self.lora_specs.items()})
             if trainable:
                 self.ema = nn.ModuleDict({
                     "feature_projections": MultiScaleProjection(
@@ -152,6 +168,8 @@ class MADM(nn.Module):
                 p.requires_grad_(True)
         else:
             self.to(dtype=cfg.compute_dtype)
+            if self.lora_specs:
+                self.lora.float()  # merged in fp32 into the bf16 weights, rounded once
 
     # ------------------------------------------------------------ teacher
     def student_ema_pairs(self) -> List[Tuple[nn.Module, nn.Module]]:
@@ -168,15 +186,32 @@ class MADM(nn.Module):
         for ema, student in self.student_ema_pairs():
             ema.load_state_dict(student.state_dict())
 
-    def _compute(self, module: nn.Module):
+    def _compute(self, module: nn.Module, weights: Optional[Dict[str, torch.Tensor]] = None):
         """``module`` as a callable with its parameters in the compute dtype:
-        the module itself when they already are, else a ``functional_call``
-        on differentiable casts of the fp32 masters (its buffers, the BN
-        running statistics among them, stay the module's own)."""
-        if not self._cast_params:
+        the module itself when they already are and ``weights`` is empty,
+        else a ``functional_call`` on differentiable casts of the fp32
+        masters, with ``weights`` (name -> tensor, e.g. merged LoRA sites)
+        in place of the module's own; its buffers, the BN running statistics
+        among them, stay the module's own."""
+        weights = dict(weights or {})
+        if self._cast_params:
+            weights = {n: weights.get(n, p).to(self.cfg.compute_dtype)
+                       for n, p in module.named_parameters()}
+        if not weights:
             return module
-        cast = {n: p.to(self.cfg.compute_dtype) for n, p in module.named_parameters()}
-        return lambda *args, **kwargs: functional_call(module, cast, args, kwargs)
+        return lambda *args, **kwargs: functional_call(module, weights, args, kwargs)
+
+    def lora_weights(self, lora_name: Optional[str]) -> Dict[str, torch.Tensor]:
+        """The UNet weights that adapter ``lora_name`` changes, merged at
+        scale alpha / rank (empty for ``None`` or a name the model does not
+        hold, as JAX ``backbone_forward`` skips the merge)."""
+        if lora_name is None or lora_name not in self.lora_specs:
+            return {}
+        spec = self.lora_specs[lora_name]
+        adapter = self.lora[lora_name]
+        sites = {f"{path}.weight" for path, _ in adapter.sites()}
+        base = {n: p for n, p in self.unet.named_parameters() if n in sites}
+        return lora_lib.merge_lora(base, adapter, spec["alpha"] / spec["rank"])
 
     # ---------------------------------------------------------- backbone
     def _images(self, images) -> torch.Tensor:
@@ -185,7 +220,8 @@ class MADM(nn.Module):
             raise ValueError(f"images must be NHWC [B, H, W, 3], got {tuple(x.shape)}")
         return x
 
-    def backbone_forward(self, images, *, input_modal: str = "others", ema_forward: bool = False,
+    def backbone_forward(self, images, *, input_modal: str = "others",
+                         lora_name: Optional[str] = None, ema_forward: bool = False,
                          timesteps: Optional[torch.Tensor] = None, train: bool = False,
                          ) -> Dict[str, object]:
         """One diffusion feature pass: NHWC images in [0, 1] ->
@@ -193,7 +229,9 @@ class MADM(nn.Module):
         'after_vae_decoder': clip(decoded eps, -1, 1)}`` (the decoder entries
         when s0 is tapped; the clipped one on train and teacher passes only,
         which read it).  ``timesteps`` [B] (default 0) noise the latent;
-        ``ema_forward`` takes the teacher's prompt and projections;
+        ``lora_name`` merges that adapter into the UNet for this pass;
+        ``ema_forward`` takes the teacher's prompt and projections (and the
+        student's UNet and adapter, as JAX does without ``ema_w_unet``);
         ``train`` builds the autograd graph.  The VAE runs without one: the
         encoder is frozen, and the s0 decoder reads ``eps.detach()`` (JAX
         stops the gradient at its output), so no gradient reaches the VAE's
@@ -214,7 +252,8 @@ class MADM(nn.Module):
             else:
                 p = prompt_lib.select_domain_params(self.prompt, input_modal, cfg.same_cond_params)
             cond_prompt, cond_time = prompt_lib.conditioning_of(p, self.uncond_inputs, b)
-            eps, taps = self._compute(self.unet)(noisy, timesteps, cond_prompt, cond_time)
+            unet = self._compute(self.unet, self.lora_weights(lora_name))
+            eps, taps = unet(noisy, timesteps, cond_prompt, cond_time)
             out: Dict[str, object] = {}
             feats: List[torch.Tensor] = []
             if cfg.use_s0:
@@ -305,22 +344,27 @@ class MADM(nn.Module):
         return torch.full((b,), int(eval_with_noise), dtype=torch.long, device=self.device)
 
     @torch.no_grad()
-    def eval_forward(self, images, eval_with_noise: Optional[int] = None) -> torch.Tensor:
+    def eval_forward(self, images, eval_with_noise: Optional[int] = None,
+                     lora_name: Optional[str] = None) -> torch.Tensor:
         """Logits [B, H, W, num_classes] fp32 through the module head."""
         x = self._images(images)
         feats = self.backbone_forward(
-            x, timesteps=self._eval_timesteps(x.shape[0], eval_with_noise))["output_features"]
+            x, lora_name=lora_name,
+            timesteps=self._eval_timesteps(x.shape[0], eval_with_noise))["output_features"]
         logits = self._eval_head()(feats)
         return resize_bilinear(logits.float(), x.shape[1:3]).permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def eval_forward_ids(self, images, eval_with_noise: Optional[int] = None,
-                         eval_head: Optional[str] = None) -> torch.Tensor:
+                         eval_head: Optional[str] = None,
+                         lora_name: Optional[str] = None) -> torch.Tensor:
         """Argmax ids [B, H, W] int32 — the inference hot path.
-        ``eval_head`` overrides ``MADMConfig.eval_head`` for this call."""
+        ``eval_head`` overrides ``MADMConfig.eval_head`` for this call;
+        ``lora_name`` picks the adapter (JAX: the target modality's)."""
         x = self._images(images)
         feats = self.backbone_forward(
-            x, timesteps=self._eval_timesteps(x.shape[0], eval_with_noise))["output_features"]
+            x, lora_name=lora_name,
+            timesteps=self._eval_timesteps(x.shape[0], eval_with_noise))["output_features"]
         return self.head_ids(feats, x.shape[1:3], eval_head)
 
     # ------------------------------------------------- sliding-window pass
@@ -334,15 +378,17 @@ class MADM(nn.Module):
 
     @torch.no_grad()
     def slide_backbone_forward(self, images, *, windows=None,
-                               timesteps: Optional[torch.Tensor] = None,
-                               form: str = "batch") -> Dict[str, Dict[str, torch.Tensor]]:
+                               timesteps: Optional[torch.Tensor] = None, form: str = "batch",
+                               lora_name: Optional[str] = None,
+                               ) -> Dict[str, Dict[str, torch.Tensor]]:
         """Sliding-window backbone (JAX ``slide_backbone_forward``, reference
         ``slide_forward``, ``feature_extractor.py:199-278``): each window's
         features added into canvases of the feature dtype and scaled by the
         reciprocal of the overlap counts.  ``form='window'`` runs one
         backbone pass a window, so only one window's features live at a
         time; ``form='batch'`` runs all windows as one pass of B * n_win
-        crops, with fewer launches.  ``timesteps`` [B] go to every window.
+        crops, with fewer launches.  ``timesteps`` [B] and ``lora_name`` go
+        to every window.
         Returns ``{'output_features': {name: NCHW}}`` at image resolution
         over each stride."""
         x = self._images(images)
@@ -350,13 +396,15 @@ class MADM(nn.Module):
         windows = tuple(windows or self.slide_windows(h, w))
         if form == "window":
             per_window = ((win, self.backbone_forward(x[:, win[0]:win[1], win[2]:win[3]],
+                                                      lora_name=lora_name,
                                                       timesteps=timesteps)["output_features"])
                           for win in windows)
         elif form == "batch":
             crops = torch.cat([x[:, y1:y2, x1:x2] for y1, y2, x1, x2 in windows], dim=0)
             if timesteps is not None:
                 timesteps = torch.as_tensor(timesteps, device=self.device).expand(b).repeat(len(windows))
-            feats = self.backbone_forward(crops, timesteps=timesteps)["output_features"]
+            feats = self.backbone_forward(crops, lora_name=lora_name,
+                                          timesteps=timesteps)["output_features"]
             per_window = ((win, {k: f[i * b:(i + 1) * b] for k, f in feats.items()})
                           for i, win in enumerate(windows))
         else:
@@ -407,7 +455,8 @@ def init_random_(model: MADM, generator: torch.Generator) -> MADM:
     """Seeded random weights, for running without a checkpoint: convs and
     linears N(0, 1/fan_in) with zero bias, norms at identity, BN statistics
     (0, 1), conv_seg N(0, 0.01^2), prompt and time embeds N(0, 0.02^2),
-    prompt blend weights U[0, 1), time blend weight 0.  A trainable model's
+    prompt blend weights U[0, 1), time blend weight 0, LoRA adapters at
+    peft's init (A ~ N(0, 1) / rank, B = 0).  A trainable model's
     teacher starts as a copy of the student.  ``generator`` must live on the
     model's device."""
     def normal(t, std):
@@ -433,6 +482,8 @@ def init_random_(model: MADM, generator: torch.Generator) -> MADM:
                 for p in (m.alpha_cond_prompt, m.alpha_uncond_prompt):
                     p.copy_(torch.rand(p.shape, generator=generator, device=p.device))
                 m.alpha_cond_time.zero_()
+            elif isinstance(m, lora_lib.LoRAAdapter):
+                lora_lib.reset_lora_(m, generator)
         if hasattr(model, "ema"):
             model.reset_ema_()
     return model

@@ -21,6 +21,10 @@ Order, as in the JAX step:
    come from its own pass;
 8. global-norm clip, AdamW at the scheduled learning rate, step + 1.
 
+With LoRA adapters (``MADMConfig.lora_configs``), the source pass takes
+the ``default`` adapter and the teacher and mixed passes the target
+modality's, each where the model holds it (JAX ``train_step.py:290-292``).
+
 ``batch``: {'source_rgb' [B,H,W,3] in [0,1], 'source_label' [B,H,W] int
 (255 ignored), 'target_second_modality' [B,H,W,3] in [0,1]}.  The random
 values come from ``sample_draws`` with an explicit generator, or from a
@@ -230,6 +234,14 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
     }
 
 
+def pass_adapters(model: MADM) -> Tuple[Optional[str], Optional[str]]:
+    """(source pass's adapter, target passes' adapter): ``default`` and the
+    target modality's, each ``None`` where the model does not hold it."""
+    names = set(model.lora_specs)
+    modality = model.cfg.target_modality
+    return ("default" if "default" in names else None), (modality if modality in names else None)
+
+
 def _encode_palette(model: MADM, labels: torch.Tensor, table: torch.Tensor):
     """labels -> palette colours in [-1, 1] -> frozen VAE latent; + valid mask."""
     rgb, valid = palette.label_to_rgb(labels, table)
@@ -255,6 +267,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             raise ValueError("train_step needs a generator or draws")
         draws = sample_draws(generator, tc, gt, cfg.num_classes, model.sem_seg_head)
     drop_src, drop_mix, drop_tch = (None if d is None else d.to(dev) for d in draws["dropout"])
+    src_lora, tgt_lora = pass_adapters(model)
     step = state.step
 
     # 1. EMA teacher
@@ -271,8 +284,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         # 3. teacher pseudo-labels (the EMA head in train mode: batch-stat BN,
         # dropout on, its running statistics updated)
         t_pl = rev_noise_timestep(draws["t_pl"], step, tc)
-        tch = model.backbone_forward(target, input_modal="others", ema_forward=True,
-                                     timesteps=torch.full((b,), t_pl, device=dev))
+        tch = model.backbone_forward(target, input_modal="others", lora_name=tgt_lora,
+                                     ema_forward=True, timesteps=torch.full((b,), t_pl, device=dev))
         ema_logits = model.head_forward(tch["output_features"], ema_forward=True, train=True,
                                         update_bn=True, dropout=drop_tch)
         ema_sm = torch.softmax(criterion.resize_logits(ema_logits.float(), target.shape[1:3]), dim=1)
@@ -297,7 +310,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     losses: Dict[str, torch.Tensor] = {}
 
     # 5. grad pass 1: source
-    out = model.backbone_forward(source, input_modal="rgb", train=True)
+    out = model.backbone_forward(source, input_modal="rgb", lora_name=src_lora, train=True)
     logits = model.head_forward(out["output_features"], train=True, update_bn=True, dropout=drop_src)
     part = {"source_loss": criterion.cross_entropy(logits, gt)}
     if "s" in tc.vae_decoder_loss:
@@ -308,7 +321,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     del out, logits, part
 
     # 6. grad pass 2: mixed
-    out = model.backbone_forward(mixed_img, input_modal="mixed", train=True)
+    out = model.backbone_forward(mixed_img, input_modal="mixed", lora_name=tgt_lora, train=True)
     logits = model.head_forward(out["output_features"], train=True, update_bn=True, dropout=drop_mix)
     part = {"target_loss": criterion.cross_entropy(logits, mixed_lbl, pixel_weight=mixed_w)}
     if "t" in tc.vae_decoder_loss:

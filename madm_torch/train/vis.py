@@ -15,8 +15,9 @@ Panels (``mtmadise.py:559-569`` and the conditionals of the shipped branch):
   vae_decoder_loss; ``:590-598``)
 - pl_reg / pl_prob_reg / pl_prob_{pseudo_val} (``reg_uncertain``; ``:599-604``)
 
-The MIC panels and the attention overlays belong to branches the port has
-not taken (ROADMAP §A6, §A11).
+The passes take the train step's adapters (``pass_adapters``; JAX
+``vis.py:44-46``).  The MIC panels and the attention overlays belong to
+branches the port has not taken (ROADMAP §A1, §A3).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch
 from ..models.madm import MADM
 from ..ops import dacs, palette
 from . import criterion
-from .train_step import TrainConfig, rev_noise_timestep
+from .train_step import TrainConfig, pass_adapters, rev_noise_timestep
 
 
 def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndarray]]:
@@ -37,6 +38,7 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
     be the ones the train step of that iteration used, so that the mix,
     jitter and rev-noise timestep reproduce its inputs."""
     cfg = model.cfg
+    src_lora, tgt_lora = pass_adapters(model)
     class_table = torch.from_numpy(palette.palette_table(tc.train_palette)[: cfg.num_classes])
 
     def decoded01(eps: torch.Tensor) -> torch.Tensor:
@@ -63,8 +65,8 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
                                         "target_sec_modal": target, "mixup_modal": mixed_img}
 
         # teacher pseudo-label pass (eval-mode head)
-        tch = model.backbone_forward(target, input_modal="others", ema_forward=True,
-                                     timesteps=torch.full((b,), t_pl, device=dev))
+        tch = model.backbone_forward(target, input_modal="others", lora_name=tgt_lora,
+                                     ema_forward=True, timesteps=torch.full((b,), t_pl, device=dev))
         ema_logits = logits_at(tch, target.shape[1:3], ema_forward=True)
         out["target_sec_modal_pl"] = ema_logits
         ema_sm = torch.softmax(ema_logits, dim=-1)
@@ -74,11 +76,11 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
         out["mixup_label"] = dacs.one_mix(mix_mask, gt.float(), pseudo_label.float()).long()
 
         # student source and mixed prediction panels
-        src = model.backbone_forward(source, input_modal="rgb")
+        src = model.backbone_forward(source, input_modal="rgb", lora_name=src_lora)
         out["source_pred"] = logits_at(src, source.shape[1:3])
         if "s" in tc.vae_decoder_loss and cfg.use_s0:
             out["source_vae_decoder_out"] = decoded01(src["before_vae_decoder"])
-        mix = model.backbone_forward(mixed_img, input_modal="mixed")
+        mix = model.backbone_forward(mixed_img, input_modal="mixed", lora_name=tgt_lora)
         out["mixup_pred"] = logits_at(mix, mixed_img.shape[1:3])
         if "t" in tc.vae_decoder_loss and cfg.use_s0:
             out["target_vae_decoder_out"] = decoded01(mix["before_vae_decoder"])

@@ -161,8 +161,7 @@ def test_built_model_and_train_config_equal_jax(name, data_root):
 
 def test_unported_config_values_raise(data_root):
     port = LazyConfig.load(_config("port", "depth_11"))
-    for ov, what in ((["model.lora_configs=['Depth_r16_a16']"], "lora_configs"),
-                     (["model.input_channel_plus=1"], "input_channel_plus"),
+    for ov, what in ((["model.input_channel_plus=1"], "input_channel_plus"),
                      (["model.mic=True"], "mic"), (["optimizer.name='adafactor'"], "optimizer.name")):
         cfg = LazyConfig.apply_overrides(LazyConfig.load(_config("port", "depth_11")), ov + overrides(data_root))
         with pytest.raises(NotImplementedError, match=what):
@@ -260,14 +259,14 @@ def test_checkpoint_round_trip(trained_state, tmp_path):
 
 
 def test_checkpoint_refuses_foreign_files(trained_state, tmp_path):
+    """An orbax directory of the JAX package raises (released reference
+    ``.pth`` files load: tests/test_torch_loaders.py)."""
     orbax = tmp_path / "orbax"
     orbax.mkdir()
     (orbax / "_METADATA").write_text("{}")
-    torch.save({"model": {}}, tmp_path / "released.pth")
     ckpt = Checkpointer(str(tmp_path / "out"))
-    for path in (orbax, tmp_path / "released.pth"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §A2"):
-            ckpt.resume_or_load(trained_state, init_from=str(path), resume=False)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        ckpt.resume_or_load(trained_state, init_from=str(orbax), resume=False)
 
 
 class _Stub:
@@ -379,9 +378,8 @@ def test_cli_eval_only_reproduces_the_training_eval(cli_run, data_root, tmp_path
                                                          if k.startswith("eval/")}
 
 
-@pytest.mark.parametrize("flag", [["--MIC"], ["--lora_configs", "Depth_r16_a16"], ["--sd-snapshot", "x"],
-                                  ["--num_chips", "2"], ["--distributed"], ["--warmup_lr"],
-                                  ["--remove_texture"]])
+@pytest.mark.parametrize("flag", [["--MIC"], ["--num_chips", "2"], ["--distributed"], ["--warmup_lr"],
+                                  ["--remove_texture"], ["--ema_w_unet"], ["--prompt_seq_len", "40"]])
 def test_cli_refuses_unported_flags(flag, data_root, tmp_path):
     argv = cli_argv(data_root, tmp_path)
     ins = argv.index("--output")
@@ -451,10 +449,13 @@ def test_do_test_equals_jax(data_root, monkeypatch):
 # ----------------------------------------------------------- import hygiene
 def test_madm_torch_imports_no_jax():
     """Every madm_torch module, the port's config files and chip_smoke.py
-    import with jax, flax, orbax and madm_tpu blocked."""
+    import with jax, flax, orbax and madm_tpu blocked, and with safetensors,
+    transformers, diffusers and peft (the loaders read their files by
+    hand)."""
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "optax", "madm_tpu"):
+for name in ("jax", "jaxlib", "flax", "orbax", "optax", "madm_tpu", "safetensors", "transformers",
+             "diffusers", "peft"):
     sys.modules[name] = None
 import madm_torch
 mods = [m.name for m in pkgutil.walk_packages(madm_torch.__path__, "madm_torch.")

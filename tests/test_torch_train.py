@@ -217,8 +217,8 @@ def test_unported_train_flags_raise(flag, value):
         TrainConfig(**{flag: value})
 
 
-@pytest.mark.parametrize("flag,value", [("lora_configs", ("Depth_r16_a16",)), ("ema_w_unet", True),
-                                        ("slide_training", True), ("finetune_unet", "attention")])
+@pytest.mark.parametrize("flag,value", [("ema_w_unet", True), ("slide_training", True),
+                                        ("finetune_unet", "attention")])
 def test_unported_model_flags_raise(flag, value):
     with pytest.raises(NotImplementedError, match=flag):
         MADMConfig(**{flag: value})
