@@ -73,7 +73,19 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    adapter equal to the writer's (K1 34, K2 1); one train step with the
    adapters (K1 104, K3 64; every adapter gradient finite and nonzero);
    then ``--eval-only --init-from released.pth --sd-snapshot`` through the
-   CLI, whose metrics must equal ``do_test`` on the writer.
+   CLI, whose metrics must equal ``do_test`` on the writer;
+11. the UDA step's ablation branches in four groups (MIC, mic_reg,
+   denoise_supervise, fd, noise_reg, pl_crop, 'discrete', 'batch',
+   linear_mix; remove_texture, prompt_confidence, no mixup, 'without
+   cross-attention', ema_w_unet with two adapters, unet_lr; the masked
+   prompt, add_latent_noise, norm_latent_noise; the perturbed prompt at
+   prompt_seq_len=100, 'L2', 'attention', the linear schedule): (a) one toy
+   fp32 step of each, CUDA against CPU at phase 6's tolerances; (b) one
+   full-width bf16 step of each at B=1 after a warm-up, its K1/K3 launches
+   equal to the counts derived from its passes (``derived_launches``),
+   every trained tensor's gradient finite and nonzero, the branch losses
+   nonzero, ms and peak memory; (c) K1 and K3 against their twins at the
+   cross-attentions' key length 100.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -132,7 +144,13 @@ from madm_torch.ops.flash_attention import (
     packed_forward_plan,
 )
 from madm_torch.train.loop import init_train_state, synthetic_batches, train
-from madm_torch.train.train_step import TrainConfig, make_train_state, sample_draws, train_step
+from madm_torch.train.train_step import (
+    TrainConfig,
+    add_feature_distance_baseline,
+    make_train_state,
+    sample_draws,
+    train_step,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense tensor-core bf16
@@ -251,9 +269,9 @@ def plan_line(kind, b, sq, sk, h, d):
             + (f", nsplit {plan.nsplit}" if kind == "K3" else ""))
 
 
-def check_flash(gen):
+def check_flash(gen, cases=FLASH_CASES):
     rows = []
-    for b, sq, sk, h, d, per_pass in FLASH_CASES:
+    for b, sq, sk, h, d, per_pass in cases:
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
         out = flash_attention(q, k, v)
         torch.cuda.synchronize()
@@ -278,12 +296,12 @@ def check_flash(gen):
     return rows
 
 
-def check_flash_bwd(gen):
+def check_flash_bwd(gen, cases=FLASH_CASES):
     """K3 against its twin at the 8 UNet shapes (the VAE's D=512 never trains)
     and at B=2 for the two Sq=4096 ones, with K1's lse against the fp32
     log-sum-exp on the way."""
     rows = []
-    for b, sq, sk, h, d, per_pass in FLASH_CASES:
+    for b, sq, sk, h, d, per_pass in cases:
         if d > 160:
             continue
         q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16() for s in (sq, sk, sk))
@@ -1412,6 +1430,191 @@ def run_real_weights(card):
     return eval_counts, train_counts
 
 
+# ------------------------------------------------------------------ phase 11
+# the UDA step's ablation groups: (MADMConfig fields, TrainConfig fields),
+# as tests/test_torch_ablation_step_*.py group them (the exclusive MIC slot
+# once a group)
+ABLATION_LORA = ("default_r16_a16", "Depth_r16_a8")
+ABLATION_GROUPS = {
+    "mic": (dict(reg_target_palette="discrete"),
+            dict(mic=True, mic_reg=1.0, denoise_supervise=1.0, denoise_interval=5, fd=0.5,
+                 noise_reg=1.0, pl_crop=True, pseudo_weight_scope="batch",
+                 merge_with_pl_data="linear_mix")),
+    "texture": (dict(finetune_unet="without cross-attention", ema_w_unet=True, lora_configs=ABLATION_LORA),
+                dict(remove_texture=True, prompt_confidence=0.5, enable_mixup=False, unet_lr=2.5e-5)),
+    "masked": (dict(mask_prompt_ratio=0.5, detach_mask_prompt=True, add_latent_noise=0.5,
+                    norm_latent_noise=True),
+               dict(mask_prompt_ratio=0.5, detach_mask_prompt=True, rev_noise_gradually=False)),
+    "perturbed": (dict(prompt_perturbation=0.1, finetune_unet="attention", prompt_seq_len=100),
+                  dict(prompt_perturbation=0.1, vae_decoder_loss_type="L2", rev_noise_sup=False,
+                       reg_uncertain=False, schedule="linear")),
+}
+ABLATION_LOSSES = {"mic": ("masked_prompt_consistency_loss", "mic_vae_decoder_loss",
+                           "denoise_consistency_loss", "feature_distance_loss", "noise_reg_loss"),
+                   "texture": ("masked_prompt_consistency_loss",), "masked": ("masked_prompt_consistency_loss",),
+                   "perturbed": ("masked_prompt_consistency_loss",)}
+ABLATION_EXTRA = ("source_pl_data", "target_second_modality_pha")
+# K1 and K3 at the cross-attentions' key length under prompt_seq_len=100 (a
+# tile of 128 keys, 28 past the end: TMA's zero fill and the mask)
+PROMPT_CASES = tuple((1, sq, 100, h, d, n) for sq, sk, h, d, n in FLASH_SHAPES if sk == 77)
+
+
+def derived_launches(tc):
+    """K1 and K3 launches of one step, derived from its passes: 34 K1 a
+    backbone pass with the VAE decoder (VAE encoder 1, UNet 32, decoder 1),
+    33 one without it (the passes whose losses read no head: the fd
+    baseline's, a MIC pass for mic_reg alone, denoise_supervise's and
+    noise_reg's student pass), 1 a palette encode; 32 K3 a student pass with
+    a gradient through the UNet (the perturbed-prompt pass trains the head
+    alone)."""
+    decoded = (3 + (tc.prompt_confidence is not None) + bool(tc.noise_reg) + bool(tc.mic)
+               + bool(tc.remove_texture) + bool(tc.mask_prompt_ratio) + bool(tc.prompt_perturbation))
+    undecoded = (bool(tc.fd) + bool(tc.mic_reg and not tc.mic) + bool(tc.denoise_supervise)
+                 + bool(tc.noise_reg))
+    encodes = len(tc.vae_decoder_loss) + bool(tc.mic_reg or tc.denoise_supervise) + bool(tc.noise_reg)
+    graded = (2 + bool(tc.mic or tc.mic_reg) + bool(tc.remove_texture) + bool(tc.mask_prompt_ratio)
+              + bool(tc.denoise_supervise) + bool(tc.noise_reg))
+    return {"K1": 34 * decoded + 33 * undecoded + encodes, "K3": 32 * graded}
+
+
+SEG_SCALE = 40.0  # conv_seg x40: the toy teacher is confident on part of an image
+
+
+def ablation_model(cfg, device, gen):
+    """A trainable model of ``cfg`` on seeded weights, its adapters' B drawn
+    nonzero (else no gradient reaches A) and its heads' conv_seg scaled by
+    ``SEG_SCALE``, so that the pseudo-weighted losses are live."""
+    model = init_random_(MADM(cfg, device=device, trainable=True), gen)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("lora_B"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.05)
+        for head in (model.sem_seg_head, model.ema["sem_seg_head"]):
+            head.conv_seg.weight.mul_(SEG_SCALE)
+        model.reset_ema_()
+    return model
+
+
+def ablation_state(model, tc, gen):
+    """The train state; under ``fd`` the baseline, then the student's UNet
+    moved 1% off it (so that the distance and its gradient are not 0)."""
+    state = make_train_state(model, tc)
+    if tc.fd:
+        add_feature_distance_baseline(state)
+        with torch.no_grad():
+            for p in model.unet.parameters():
+                p.mul_(1 + 0.01 * torch.randn(p.shape, generator=gen, device=p.device))
+    return state
+
+
+def check_ablation_toy():
+    """Phase 11 (a): one step of each ablation group on the toy model in fp32
+    (TF32 off), CUDA (kernels) against CPU (twins), from the same weights,
+    batch and draws: losses and grad_norm to 1e-4 relative, gradients (Adam's
+    first moment) to 2e-3 of the largest entry (phase 6's tolerances), and
+    the CUDA step's launches equal to the derived counts."""
+    for name, (model_kw, tc_kw) in ABLATION_GROUPS.items():
+        cfg = dataclasses.replace(TOY, **model_kw)
+        tc = TrainConfig(**tc_kw)
+        cpu = ablation_model(cfg, "cpu", torch.Generator().manual_seed(SEED))
+        gpu = MADM(cfg, device="cuda", trainable=True)
+        gpu.load_state_dict(cpu.state_dict())
+        s_cpu = ablation_state(cpu, tc, torch.Generator().manual_seed(SEED + 1))
+        s_gpu = make_train_state(gpu, tc)
+        if tc.fd:  # the baseline is the unperturbed start: the CPU's, copied
+            add_feature_distance_baseline(s_gpu)
+            for k, m in s_cpu.consts.items():
+                s_gpu.consts[k].load_state_dict(m.state_dict())
+            gpu.load_state_dict(cpu.state_dict())
+        gen = torch.Generator().manual_seed(SEED + 11)
+        batch = next(synthetic_batches(2, cfg.crop_size, cfg.num_classes, gen, extra=ABLATION_EXTRA))
+        draws = sample_draws(gen, tc, batch["source_label"], cfg.num_classes, cpu.sem_seg_head, cfg)
+        m_cpu = train_step(s_cpu, batch, draws=draws)
+        reset_counts()
+        m_gpu = train_step(s_gpu, batch, draws=draws)
+        launches = launch_counts()
+        expected = derived_launches(tc)
+        worst = max(abs(m_gpu[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items())
+        named_cpu, named_gpu = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+        mom = [(s_gpu.optimizer.state[named_gpu[n]]["exp_avg"].cpu(), s_cpu.optimizer.state[p]["exp_avg"])
+               for n, p in named_cpu.items() if p.requires_grad]
+        mmax = max(c.abs().max().item() for _, c in mom)
+        grad_err = max((g - c).abs().max().item() for g, c in mom) / mmax
+        live = [k for k in ABLATION_LOSSES[name] if m_cpu[k] != 0.0]  # 0 where pseudo_val is 0
+        log(f"phase 11 toy '{name}' step (fp32): CUDA vs CPU losses/grad_norm max rel err {worst:.3e} "
+            f"(tol 1e-4); gradients (Adam first moment) max err {grad_err:.3e} of the largest (tol 2e-3); "
+            f"{len(mom)} trained tensors; branch losses nonzero {live}; CUDA launches {launches} "
+            f"(derived {expected}); " + " ".join(f"{k}={v:.5f}" for k, v in m_gpu.items()))
+        if not (worst <= 1e-4 and grad_err <= 2e-3):
+            raise AssertionError(f"phase 11 toy '{name}': CUDA disagrees with the CPU twins")
+        if launches != expected:
+            raise AssertionError(f"phase 11 toy '{name}' launched {launches}; derived {expected}")
+
+
+def live_warm_up(state, batches, gen):
+    """Warm-up steps until the teacher is confident on part of the image (0 <
+    pseudo_val < 1, so that the pseudo-weighted losses are live), scaling both
+    heads' conv_seg by 4 (or 1/4) between tries; returns the last metrics."""
+    model = state.model
+    for _ in range(5):
+        m = train(state, batches, steps=1, generator=gen)[0]
+        if 0.0 < m["pseudo_val"] < 1.0:
+            return m
+        with torch.no_grad():
+            for head in (model.sem_seg_head, model.ema["sem_seg_head"]):
+                head.conv_seg.weight.mul_(4.0 if m["pseudo_val"] == 0.0 else 0.25)
+    raise AssertionError(f"no conv_seg scale gave a partly confident teacher: {m}")
+
+
+def run_ablation_full(card):
+    """Phase 11 (b): each ablation group at full width in bf16, B=1, on a
+    model of its own MADMConfig (a build takes 0.1 s): warm-up steps
+    (``live_warm_up``), then one step with CUDA-event ms, peak memory and launches, which must
+    equal the derived counts; every trained tensor's gradient finite and
+    nonzero (alpha_uncond_prompt exempt while uncond_inputs is zeros), the
+    branch losses finite and nonzero."""
+    rows = {}
+    for name, (model_kw, tc_kw) in ABLATION_GROUPS.items():
+        t0 = time.perf_counter()
+        cfg, tc = MADMConfig(**model_kw), TrainConfig(**tc_kw)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+        state = ablation_state(ablation_model(cfg, "cuda", gen), tc, gen)
+        batches = synthetic_batches(1, cfg.crop_size, cfg.num_classes, gen, extra=ABLATION_EXTRA)
+        warm = live_warm_up(state, batches, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = train(state, batches, steps=1, generator=gen)[0]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        expected = derived_launches(tc)
+        named = trainable_parameters(state.model)
+        exempt = () if state.model.uncond_inputs.any() else ("alpha_uncond_prompt",)
+        faults = [n for n, p in named if p.grad is None or not torch.isfinite(p.grad).all()
+                  or not (p.grad.any() or n.endswith(exempt))]
+        dead = [k for k in ABLATION_LOSSES[name] if not (math.isfinite(m[k]) and m[k] != 0.0)]
+        rows[name] = dict(ms=ms, peak_gib=peak, launches=launches, derived=expected)
+        log(f"phase 11 full-width '{name}' B=1 step {state.step}: {ms:.1f} ms, peak memory {peak:.2f} GiB; "
+            f"launches {launches} (derived {expected}); {len(named) - len(faults)} of {len(named)} "
+            f"trained tensors with a finite nonzero gradient (exempt {exempt}); warm-up "
+            f"pseudo_val={warm['pseudo_val']:.5f}; " + " ".join(
+                f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms")
+            + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+        if launches != expected:
+            raise AssertionError(f"phase 11 '{name}' launched {launches}; derived {expected}")
+        if faults or dead or not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"phase 11 '{name}': gradients {faults[:10]}, losses {dead}: {m}")
+        del state, batches, named
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -1474,6 +1677,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_real_weights(card)
     phase_done("10 (real-weight loading)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_ablation_toy()
+    run_ablation_full(card)
+    check_flash(gen, PROMPT_CASES)
+    check_flash_bwd(gen, PROMPT_CASES)
+    phase_done("11 (the step's ablation branches)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)

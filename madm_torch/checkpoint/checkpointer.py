@@ -3,7 +3,9 @@ reference ``checkpoint/odise_checkpointer.py``).
 
 A checkpoint is one ``.pth`` file written by ``torch.save``: ``{"format":
 "madm_torch", "model": state_dict, "optimizer": AdamW state_dict, "step":
-int}``.  The model's ``state_dict`` has the reference key names and holds the
+int}``, and ``"consts"`` (the ``fd`` baseline's UNet and prompt state
+dicts) when the state holds them, so that a resumed ``fd`` run keeps the
+target it started with.  The model's ``state_dict`` has the reference key names and holds the
 EMA teacher (``ema.*``) and the head's BN statistics (``running_mean`` /
 ``running_var`` of the student and the teacher); the frozen VAE is kept too,
 so that a checkpoint restores a run without the SD snapshot it started from
@@ -30,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..train.train_step import add_feature_distance_baseline
 from .converter import convert_madm_pth, merge_into_model
 
 logger = logging.getLogger(__name__)
@@ -49,8 +52,11 @@ class Checkpointer:
         """Write ``<name>.pth`` and point ``last_checkpoint`` at it."""
         path = self._path(f"{name}.pth")
         tmp = f"{path}.tmp"
-        torch.save({"format": FORMAT, "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict(), "step": int(state.step)}, tmp)
+        ckpt = {"format": FORMAT, "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(), "step": int(state.step)}
+        if state.consts:
+            ckpt["consts"] = {k: m.state_dict() for k, m in state.consts.items()}
+        torch.save(ckpt, tmp)
         os.replace(tmp, path)
         with open(os.path.join(self.save_dir, "last_checkpoint"), "w") as f:
             f.write(os.path.basename(path))
@@ -96,10 +102,11 @@ class Checkpointer:
 
 def load_checkpoint(path: str, state):
     """Restore a checkpoint file into ``state`` in place.  A file of the port
-    restores the model (student, EMA teacher, BN statistics), the optimizer
-    and the step; a released reference ``.pth`` overlays its weights on the
-    model (JAX ``resume_or_load``, ``checkpointer.py:105-116``).  Files are
-    unpickled with ``weights_only=True``."""
+    restores the model (student, EMA teacher, BN statistics), the optimizer,
+    the step and, for an ``fd`` run, the fd baseline; a released reference
+    ``.pth`` overlays its weights on the model (JAX ``resume_or_load``,
+    ``checkpointer.py:105-116``).  Files are unpickled with
+    ``weights_only=True``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(ckpt, dict) and ckpt.get("format") == FORMAT):
         logger.info(f"{path} is not a madm_torch checkpoint: converting it as a released MADM .pth")
@@ -108,6 +115,11 @@ def load_checkpoint(path: str, state):
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
+    if "consts" in ckpt and state.tc.fd:
+        if not state.consts:
+            add_feature_distance_baseline(state)
+        for name, sd in ckpt["consts"].items():
+            state.consts[name].load_state_dict(sd)
     return state
 
 

@@ -211,27 +211,26 @@ def convert_madm_pth(path_or_sd, in_index: Sequence[int] = (0, 1, 2, 3)) -> Dict
     """A released MADM checkpoint (a path, or its loaded state dict) -> the
     port's state-dict keys, for ``merge_into_model``: the UNet (peft wrappers
     stripped) and its adapters, the prompts, projections and head with its BN
-    statistics, and the teacher's copies (``ema.*``).  Keys outside these
-    parts (the frozen SD weights the reference leaves out, buffers such as
-    ``pixel_mean``) are not MADM's trained weights and are skipped, as the
-    JAX converter skips them.  A file of an ``--ema_w_unet`` run (a teacher
-    UNet under ``ldm_extractor.ema_unet``) raises: that flag is not ported."""
+    statistics, and the teacher's copies (``ema.*``; a file of an
+    ``--ema_w_unet`` run also holds the teacher's UNet and adapters under
+    ``ldm_extractor.ema_unet``, which go to ``ema.unet`` and ``ema.lora``,
+    JAX ``converter.py:476-480``).  Keys outside these parts (the frozen SD
+    weights the reference leaves out, buffers such as ``pixel_mean``) are
+    not MADM's trained weights and are skipped, as the JAX converter skips
+    them."""
     sd = _state_dict_of(path_or_sd) if isinstance(path_or_sd, dict) else load_torch_file(path_or_sd)
     out: Dict[str, torch.Tensor] = {}
     skipped = 0
     for key, w in sd.items():
         new = None
-        if key.startswith(EMA_UNET):
-            raise NotImplementedError(
-                f"{key}: a checkpoint of an --ema_w_unet run (MADMConfig.ema_w_unet, a teacher UNet "
-                "and adapters) is not ported to madm_torch yet (ROADMAP §A1)")
-        if key.startswith(UNET):
-            rel = key[len(UNET):]
-            m = _PEFT.fullmatch(rel)
-            if m:  # peft: <site>.lora_A.<adapter>.weight -> lora.<adapter>.<site>.lora_A
-                new = f"lora.{m.group(3)}.{_diffusers_rename(m.group(1))}.lora_{m.group(2)}"
-            else:
-                new = "unet." + _diffusers_rename(rel.replace(".base_layer.", "."))
+        for src, dst in ((UNET, ""), (EMA_UNET, "ema.")):
+            if key.startswith(src):
+                rel = key[len(src):]
+                m = _PEFT.fullmatch(rel)
+                if m:  # peft: <site>.lora_A.<adapter>.weight -> lora.<adapter>.<site>.lora_A
+                    new = f"{dst}lora.{m.group(3)}.{_diffusers_rename(m.group(1))}.lora_{m.group(2)}"
+                else:
+                    new = f"{dst}unet." + _diffusers_rename(rel.replace(".base_layer.", "."))
         for src, dst in _HEADS:
             if key.startswith(src):
                 new = dst + _head_key(key[len(src):], in_index)
@@ -303,22 +302,26 @@ def reference_state_dict(model: nn.Module, in_index: Sequence[int] = (0, 1, 2, 3
     """``model``'s trained state in a released checkpoint's layout, fp32 on
     the CPU: the inverse of ``convert_madm_pth``.  With adapters, every
     adapted linear is peft-wrapped (``<site>.base_layer.weight``) and each
-    adapter is ``<site>.lora_A|lora_B.<name>.weight``.  The frozen VAE and
-    the constants are left out, as the reference's checkpointer leaves them."""
+    adapter is ``<site>.lora_A|lora_B.<name>.weight``; the teacher's UNet
+    and adapters (``ema_w_unet``) likewise under ``ldm_extractor.ema_unet``.
+    The frozen VAE and the constants are left out, as the reference's
+    checkpointer leaves them."""
     adapters = getattr(model, "lora", {})
     sites = {path for a in adapters.values() for path, _ in a.sites()}
     inverse = [(dst, src) for src, dst in _PREFIXES]
     out: Dict[str, torch.Tensor] = {}
     for key, v in model.state_dict().items():
         v = v.detach().to("cpu", torch.float32 if v.is_floating_point() else v.dtype, copy=True)
-        if key.startswith("unet."):
-            rel = key[len("unet."):]
+        ema, unet_key = key.startswith("ema."), key.removeprefix("ema.")
+        prefix = EMA_UNET if ema else UNET
+        if unet_key.startswith("unet."):
+            rel = unet_key[len("unet."):]
             site, _, leaf = rel.rpartition(".")
-            out[UNET + (f"{site}.base_layer.{leaf}" if site in sites else rel)] = v
-        elif key.startswith("lora."):
-            _, name, rest = key.split(".", 2)
+            out[prefix + (f"{site}.base_layer.{leaf}" if site in sites else rel)] = v
+        elif unet_key.startswith("lora."):
+            _, name, rest = unet_key.split(".", 2)
             site, _, leaf = rest.rpartition(".")
-            out[f"{UNET}{site}.{leaf}.{name}.weight"] = v
+            out[f"{prefix}{site}.{leaf}.{name}.weight"] = v
         elif key.startswith(("sem_seg_head.", "ema.sem_seg_head.")):
             src = "ema_sem_seg_head." if key.startswith("ema.") else "sem_seg_head."
             rel = key.split("sem_seg_head.", 1)[1]

@@ -7,8 +7,8 @@ and the peft adapters of ``convert_madm_pth``), restricted to the modules the
 port holds, so both packages compute the same function on the same weights.
 Besides ``params`` (the LoRA adapters ``params['lora']`` among them) and
 ``consts`` it carries what a JAX ``TrainState`` adds: the EMA teacher tree
-(``ema``: projections, head, ``clip_project_others``, and ``lora`` where an
-``ema_w_unet`` state has one) and the BN statistics ``state.head_bn`` and
+(``ema``: projections, head, ``clip_project_others``, and ``unet`` and
+``lora`` where an ``ema_w_unet`` state has them) and the BN statistics ``state.head_bn`` and
 ``state.ema_head_bn``.  Reads nested dicts of arrays (anything
 ``numpy.asarray`` takes); imports nothing of the JAX package.
 
@@ -142,6 +142,8 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_projections(ema["projections"], "ema.feature_projections"))
     if "head" in ema:
         out.update(_head(ema["head"], state.get("ema_head_bn", {}), "ema.sem_seg_head"))
+    if "unet" in ema:
+        out.update(_module_tree(ema["unet"], "ema.unet", _diffusers))
     out.update(_lora(ema.get("lora", {}), "ema.lora"))
     if "clip_project_others" in ema:
         out.update({f"ema.clip_project_others.{k}": np.asarray(v, np.float32)

@@ -23,10 +23,16 @@ Host-side re-implementation of ``data/dataset/cross_modality_dataset.py``
 - test: resize both image and label to ``test_resize_h_w``; emits
   ``file_name``/``pred_save_name`` for the evaluator (``:488-521``).
 
+Ablations (JAX ``dataset.py:79-130``): ``remove_amp`` adds
+'source_rgb_pha' (the FDA low-frequency amplitude flattened over a band
+drawn in [remove_amp[0], remove_amp[1]], blended by ``fda_fusion_val``);
+``remove_texture`` adds 'target_second_modality_pha' (the target's local
+edge texture); ``pl_data_path`` adds 'source_pl_data' with the source's
+crop and flip; ``merge_more_target_data`` appends a target subdirectory's
+images.
+
 Images decode with PIL only (the JAX package also has a native C++ decoder,
-whose resampling differs).  The FDA and edge-texture ablations
-(``remove_amp``, ``fda_fusion_val``, ``remove_texture``) need ``ops/fda.py``,
-which is not ported (ROADMAP §A1): they raise.
+whose resampling differs).
 
 Output layout is **NHWC float32 in [0, 255]** (converted to [0,1] by the
 loader), labels [H, W] int32.
@@ -42,6 +48,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 from PIL import Image
+
+from ..ops.fda import extract_edge_info_local, remove_array_amp
 
 logger = logging.getLogger(__name__)
 
@@ -109,12 +117,21 @@ class CrossModalityDataset:
         self.names = names
         self.rng = random.Random(seed)
         self.np_rng = np.random.default_rng(seed)  # the rare-class draws
-        for name, value in (("remove_amp", remove_amp), ("fda_fusion_val", fda_fusion_val),
-                            ("remove_texture", remove_texture or None)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"CrossModalityDataset: {name} needs ops/fda.py, which is not ported to "
-                    "madm_torch yet (ROADMAP §A1)")
+        # FDA ablation (reference :112-126,195-205,287-291): when set, each
+        # train sample additionally carries 'source_rgb_pha' — the source
+        # image with its low-frequency FFT amplitude flattened over a random
+        # band in [remove_amp[0], remove_amp[1]]
+        self.remove_amp = list(remove_amp) if remove_amp is not None else None
+        if self.remove_amp is not None:
+            assert len(self.remove_amp) == 2, self.remove_amp
+        self.fda_fusion_val = (
+            list(fda_fusion_val) if fda_fusion_val is not None else None
+        )
+        # edge-texture ablation (reference :206-207,465-470): the target
+        # image's local-region edge map rides along as
+        # 'target_second_modality_pha'
+        self.remove_texture = remove_texture
+        assert not (self.remove_amp and self.remove_texture)
         # two-stage extras: pl_data_path points at stage-1 generated images
         # parallel to the source labels (reference :278-284); samples gain
         # 'source_pl_data' with the same crop/flip as the source
@@ -277,8 +294,26 @@ class CrossModalityDataset:
                 "height": ch,
                 "width": cw,
             }
+            if self.remove_amp is not None:
+                L = self.rng.uniform(self.remove_amp[0], self.remove_amp[1])
+                fusion = None
+                if self.fda_fusion_val is not None:
+                    f = self.fda_fusion_val
+                    fusion = self.rng.uniform(f[0], f[1]) if len(f) == 2 else f[0]
+                pha = remove_array_amp(src["rgb"].transpose(2, 0, 1), L, fusion)
+                tgt_pha = remove_array_amp(tgt.transpose(2, 0, 1), L, fusion)
+                # mean-shift the source pha toward the target pha and clip
+                # (reference :455-462)
+                pha = np.clip(pha + (tgt_pha.mean() - pha.mean()), 0, 255)
+                out["source_rgb_pha"] = np.ascontiguousarray(
+                    pha.transpose(1, 2, 0)
+                ).astype(np.float32)
             if self.pl_data_path is not None:
                 out["source_pl_data"] = src["pl_data"]
+            if self.remove_texture:
+                out["target_second_modality_pha"] = np.ascontiguousarray(
+                    extract_edge_info_local(tgt.transpose(2, 0, 1)).transpose(1, 2, 0)
+                ).astype(np.float32)
             return out
 
         # ----------------------------- test branch

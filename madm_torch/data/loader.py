@@ -67,8 +67,11 @@ class TrainLoader:
                 "source_label": _stack(samples, "source_label").astype(np.int32),
                 "target_second_modality": _stack(samples, "target_second_modality") / 255.0,
             }
-            if "source_pl_data" in samples[0]:  # two-stage pl data
-                batch["source_pl_data"] = _stack(samples, "source_pl_data") / 255.0
+            # the ablations' extra images: two-stage pl data, FDA remove_amp,
+            # remove_texture
+            for key in ("source_pl_data", "source_rgb_pha", "target_second_modality_pha"):
+                if key in samples[0]:
+                    batch[key] = _stack(samples, key) / 255.0
             self._q.put(batch)
 
     def __iter__(self):

@@ -16,8 +16,13 @@ Differences from the JAX launcher:
   the CPU by itself.
 - One process on one device: ``--num_chips`` above 1 and ``--distributed``
   raise (ROADMAP §A2), as do the other flags whose branch the port has not
-  taken (``UNPORTED_FLAGS``: the step ablations of ROADMAP §A1, the model
-  variants of §A3).
+  taken (``UNPORTED_FLAGS``, each with its ROADMAP section: the model
+  variants and attention-capture losses of §A3, ``--with_clip`` of §A4).
+  The step's ablation flags (MIC, ``--FD``, ``--noise_reg``,
+  ``--denoise_supervise``, the prompt ablations, ``--prompt_seq_len``,
+  ``--remove_texture``, ``--remove_amp``, ``--merge_with_pl_data``, ...),
+  ``--finetune_*``, ``--ema_w_unet``, ``--unet_lr`` and ``--warmup_lr`` map
+  onto the config as the JAX launcher maps them.
 - Weights start seeded random (``cfg.train.seed``); ``--sd-snapshot`` (or
   ``MADM_SD_SNAPSHOT``) overlays an HF SD-v1.4 snapshot's VAE and UNet and,
   where it has ``text_encoder/``, recomputes ``uncond_inputs`` (and with
@@ -57,28 +62,32 @@ from .device import resolve_device
 from .evaluation import inference_on_dataset
 from .models.clip_text import compute_uncond_inputs
 from .models.madm import init_random_
-from .train.train_step import build_train_config, make_train_state, sample_draws, train_step
+from .models.prompt import resize_prompt
+from .train.train_step import (
+    add_feature_distance_baseline,
+    build_train_config,
+    make_train_state,
+    sample_draws,
+    train_step,
+)
 from .utils import CommonMetricPrinter, EventStorage, JSONWriter, WriterStack
 
 logger = logging.getLogger("madm_torch")
 
-# flags whose branch the port has not taken (each queued in ROADMAP §A): set to
-# anything but the parser's default, each raises NotImplementedError naming it
-UNPORTED_FLAGS = (
-    "--enable_sem_seg_head_sec_modal", "--unet_lr", "--disable_mixup", "--pl_crop", "--MIC",
-    "--mask_ratio", "--MIC_reg", "--MIC_reg_wo_pl_val", "--FD", "--noise_reg",
-    "--reg_target_palette", "--denoise_supervise", "--finetune_without_cross_attention",
-    "--finetune_no", "--remove_texture", "--remove_amp", "--slide_training",
-    "--final_fuse_vae_decoder_feat", "--mask_prompt_ratio", "--detach_mask_prompt",
-    "--prompt_perturbation", "--prompt_confidence", "--rand_prompt_scale", "--without_prompt",
-    "--without_prompt_alpha", "--prompt_seq_len", "--denoise_interval",
-    "--multi_layer_prompt", "--target_attention_loss", "--attention_select_index",
-    "--FD_attention", "--merge_with_pl_data", "--pl_data_path", "--merge_more_target_data",
-    "--with_clip", "--concat_corss_attention_feat_to_conv_seg", "--without_vae_encoder_feat",
-    "--baseline_wo_encoder_feat", "--single_scale_decoder", "--fda_fusion_val",
-    "--concat_pixel_shuffle", "--mask_diff", "--add_latent_noise", "--norm_latent_noise",
-    "--ema_w_unet", "--warmup_lr", "--distributed",
-)
+# flags whose branch the port has not taken, each with the ROADMAP section
+# that queues it: set to anything but the parser's default, each raises
+# NotImplementedError naming it
+UNPORTED_FLAGS = {
+    **dict.fromkeys((
+        "--enable_sem_seg_head_sec_modal", "--slide_training", "--final_fuse_vae_decoder_feat",
+        "--without_prompt", "--without_prompt_alpha", "--multi_layer_prompt",
+        "--target_attention_loss", "--attention_select_index", "--FD_attention",
+        "--concat_corss_attention_feat_to_conv_seg", "--without_vae_encoder_feat",
+        "--baseline_wo_encoder_feat", "--single_scale_decoder", "--concat_pixel_shuffle",
+        "--mask_diff"), "§A3"),
+    "--with_clip": "§A4",
+    "--distributed": "§A2",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -188,15 +197,12 @@ def refuse_unported(args, parser: argparse.ArgumentParser) -> None:
     """Raise NotImplementedError naming the first flag that reaches a branch
     the port has not taken; such flags are never ignored."""
     by_flag = {a.option_strings[0]: a.dest for a in parser._actions if a.option_strings}
-    for flag in UNPORTED_FLAGS:
+    for flag, section in UNPORTED_FLAGS.items():
         dest = by_flag[flag]
         if getattr(args, dest) != parser.get_default(dest):
-            raise NotImplementedError(f"{flag} is not ported to madm_torch yet (ROADMAP §A)")
+            raise NotImplementedError(f"{flag} is not ported to madm_torch yet (ROADMAP {section})")
     if args.num_chips is not None and args.num_chips > 1:
         raise NotImplementedError("--num_chips > 1 is not ported to madm_torch yet (ROADMAP §A2)")
-    if args.vae_decoder_loss_type == "L2":
-        raise NotImplementedError("--vae_decoder_loss_type L2 is not ported to madm_torch yet "
-                                  "(ROADMAP §A1)")
 
 
 def apply_cli_mutations(cfg, args):
@@ -240,17 +246,39 @@ def apply_cli_mutations(cfg, args):
         cfg.train.reference_world_size = args.reference_world_size
     if args.stop_iter is not None:
         cfg.train.stop_iter = args.stop_iter
+    if args.unet_lr is not None:
+        cfg.optimizer["unet_lr"] = args.unet_lr
     if args.vis_period is not None:
         cfg.train.vis_period = args.vis_period
     if args.use_checkpoint:
         cfg.model.remat = True
     if args.same_cond_params:
         cfg.model.same_cond_params = True
+    if args.disable_mixup:
+        cfg.model.enable_mixup = False
     if args.disable_color_aug:  # color_aug_flag=False (cmdise.py:141)
         cfg.model.color_jitter_probability = 0.0
         cfg.model.color_jitter_strength = 0.0
+    if args.pl_crop:
+        cfg.model.pl_crop = True
     if args.pseudo_threshold is not None:
         cfg.model.pseudo_threshold = args.pseudo_threshold
+    if args.mic:
+        cfg.model.mic = True
+    if args.mask_ratio is not None:
+        cfg.model.mask_ratio = args.mask_ratio
+    if args.mic_reg is not None:
+        cfg.model.mic_reg = args.mic_reg
+    if args.mic_reg_wo_pl_val:
+        cfg.model.mic_reg_wo_pl_val = True
+    if args.fd is not None:
+        cfg.model.fd = args.fd
+    if args.noise_reg is not None:
+        cfg.model.noise_reg = args.noise_reg
+    if args.reg_target_palette is not None:
+        cfg.model.reg_target_palette = args.reg_target_palette
+    if args.denoise_supervise is not None:
+        cfg.model.denoise_supervise = args.denoise_supervise
     if args.denoise_timestep_range is not None:
         cfg.model.denoise_timestep_range = list(args.denoise_timestep_range)
     if args.rev_noise_sup:
@@ -267,6 +295,55 @@ def apply_cli_mutations(cfg, args):
         cfg.model.vae_decoder_loss_type = args.vae_decoder_loss_type
     if args.vae_decoder_loss_weight is not None:
         cfg.model.vae_decoder_loss_weight = list(args.vae_decoder_loss_weight)
+    if args.finetune_without_cross_attention:
+        cfg.model.finetune_unet = "without cross-attention"
+    if args.finetune_no:
+        cfg.model.finetune_unet = "no"
+    if args.remove_amp is not None:
+        cfg.dataloader.train.dataset.remove_amp = list(args.remove_amp)
+    if args.remove_texture:
+        # the dataset emits 'target_second_modality_pha' and the step runs
+        # the edge-map consistency pass (reference main.py:462-464)
+        cfg.dataloader.train.dataset.remove_texture = True
+        cfg.model.remove_texture = True
+    if args.mask_prompt_ratio is not None:
+        cfg.model.mask_prompt_ratio = args.mask_prompt_ratio
+    if args.detach_mask_prompt:
+        cfg.model.detach_mask_prompt = True
+    if args.prompt_perturbation is not None:
+        cfg.model.prompt_perturbation = args.prompt_perturbation
+    if args.prompt_confidence is not None:
+        cfg.model.prompt_confidence = args.prompt_confidence
+    if args.rand_prompt_scale is not None:
+        cfg.model.rand_prompt_scale = args.rand_prompt_scale
+    if args.prompt_seq_len is not None:
+        cfg.model.prompt_seq_len = args.prompt_seq_len
+    if args.denoise_interval is not None:
+        cfg.model.denoise_interval = args.denoise_interval
+    if args.merge_with_pl_data is not None:
+        mode = args.merge_with_pl_data
+        if "-" in mode:  # 'linear_mix-0.3' (reference cmdise.py:204-205)
+            mode, val = mode.split("-")
+            cfg.model.pl_merge_val = float(val)
+        cfg.model.merge_with_pl_data = mode
+    if args.pl_data_path is not None:
+        cfg.dataloader.train.dataset.pl_data_path = args.pl_data_path
+    if args.merge_more_target_data is not None:
+        cfg.dataloader.train.dataset.merge_more_target_data = args.merge_more_target_data
+    if args.fda_fusion_val is not None:
+        cfg.dataloader.train.dataset.fda_fusion_val = list(args.fda_fusion_val)
+        cfg.dataloader.test.dataset.fda_fusion_val = list(args.fda_fusion_val)
+    if args.add_latent_noise != -1:
+        cfg.model.add_latent_noise = args.add_latent_noise
+    if args.norm_latent_noise:
+        cfg.model.norm_latent_noise = True
+    if args.ema_w_unet:
+        cfg.model.ema_w_unet = True
+    if args.warmup_lr:
+        # linear decay to 0 in place of the multi-step schedule, and weight
+        # decay 0.01 (reference main.py:528-540)
+        cfg.optimizer["schedule"] = "linear"
+        cfg.optimizer["weight_decay"] = 0.01
     if args.tag:
         cfg.train.run_tag = args.tag
     out = args.output or os.path.join(cfg.train.output_dir, cfg.train.get("run_tag", "") or "run")
@@ -313,8 +390,9 @@ def load_snapshot_(model, snapshot_dir: str):
     a text encoder, recompute ``uncond_inputs`` from it (reference
     ``ldm_diffusers.py:219-243``) and, with ``init_uncond_prompt``, seed
     each learned ``prompt_embed`` from them (``ldm_base.py:648-650``; JAX
-    ``main.py:420-450``).  The prompt length is always 77 here
-    (``--prompt_seq_len`` is not ported), so no resize is needed."""
+    ``main.py:420-450``), bilinearly resized into a ``--prompt_seq_len``
+    other than 77 (with ``jax.image.resize``'s antialiasing when it
+    shrinks)."""
     logger.info(f"loading SD snapshot from {snapshot_dir}")
     snap = load_sd_snapshot(snapshot_dir)
     merge_into_model(model, snapshot_state_dict(snap))
@@ -324,7 +402,8 @@ def load_snapshot_(model, snapshot_dir: str):
         model.uncond_inputs.copy_(compute_uncond_inputs(snap["clip_text"], device=model.device))
         if model.cfg.init_uncond_prompt:
             for p in model.prompt.values():
-                p.prompt_embed.copy_(model.uncond_inputs)
+                p.prompt_embed.copy_(resize_prompt(model.uncond_inputs, p.prompt_embed.shape[-2],
+                                                   antialias=True))
     return model
 
 
@@ -374,6 +453,10 @@ def do_train(cfg, args):
     ckpt = Checkpointer(cfg.train.output_dir)
     state, _ = ckpt.resume_or_load(state, args.init_from, args.resume)
     start_iter = state.step
+    if tc.fd and "ori_unet" not in state.consts:
+        # the fd target: the UNet and prompt the run starts from (JAX
+        # main.py:563-568); a resumed checkpoint restores its own
+        add_feature_distance_baseline(state)
 
     loader = instantiate(cfg.dataloader.train)
     periodic = PeriodicCheckpointer(ckpt, cfg.train.checkpointer["period"], cfg.train.max_iter,
@@ -411,7 +494,7 @@ def do_train(cfg, args):
             batch = _to_device(next(data_iter), model.device)
             t1 = time.perf_counter()
             draws = sample_draws(gen, tc, batch["source_label"].long(), model.cfg.num_classes,
-                                 model.sem_seg_head)
+                                 model.sem_seg_head, model.cfg)
             metrics = train_step(state, batch, draws=draws)  # host floats: the step has ended
             t2 = time.perf_counter()
             # the NaN sentinel: a poisoned state never reaches a checkpoint or an eval

@@ -5,9 +5,14 @@ Maps the config surface (the knobs set by
 configs) onto ``MADMConfig``/``MADM``, with the JAX builder's keyword
 surface.  UDA knobs live on the model node as in the reference's
 ``MTMADISE``/``CMDISE`` constructor arguments (``mtmadise.py:28-48``);
-``madm_torch.train.build_train_config`` reads them from there, so the
-builder only checks that it knows them.  Unknown keys raise.  A value whose
-branch the port has not taken raises ``NotImplementedError`` naming it.
+``madm_torch.train.build_train_config`` reads them from there.  Those the
+model reads itself (``_MODEL_KNOBS``: the prompt ablations and
+``prompt_seq_len``, ``reg_target_palette``, ``init_uncond_prompt``,
+``ema_w_unet``) also become ``MADMConfig`` fields; the builder only checks
+that it knows the others.  Unknown keys raise.  A value whose branch the
+port has not taken raises ``NotImplementedError`` naming it.
+``ema_w_unet`` is honoured here, where the JAX builder drops the key, so
+that the JAX launcher's ``--ema_w_unet`` changes nothing (ROADMAP §C).
 
 Two keywords are the port's own: ``device`` (the model is built on it) and
 ``trainable`` (fp32 masters and the EMA teacher, for the train state); and
@@ -34,7 +39,7 @@ _IGNORED_REFERENCE_KEYS = frozenset({
     "size_divisibility", "sem_seg_postprocess_before_inference",
     "pixel_mean", "pixel_std", "semantic_on", "instance_on", "panoptic_on",
     "test_topk_per_image", "class_names", "max_iter",
-    "add_zero_grad", "wo_lora", "w_rgb_lora", "ema_w_unet",
+    "add_zero_grad", "wo_lora", "w_rgb_lora",
 })
 
 # UDA knobs (the JAX builder's list, with MIC_reg_wo_pl_val's spelling)
@@ -51,14 +56,20 @@ _UDA_KEYS = frozenset({
     "without_prompt", "without_prompt_alpha", "prompt_seq_len",
     "init_uncond_prompt", "denoise_interval", "merge_with_pl_data",
     "pl_merge_val", "fd_attention", "target_attention_loss",
-    "reg_target_palette",
+    "reg_target_palette", "ema_w_unet", "remove_texture",
 })
+
+
+# UDA knobs that are MADMConfig fields (the rest configure the train step)
+_MODEL_KNOBS = ("init_uncond_prompt", "ema_w_unet", "mask_prompt_ratio", "detach_mask_prompt",
+                "prompt_perturbation", "rand_prompt_scale", "prompt_seq_len", "reg_target_palette")
 
 
 def _refuse(name: str, value, ported) -> None:
     if value != ported:
         raise NotImplementedError(
-            f"build_madm: {name}={value!r} is not ported to madm_torch yet (it takes {ported!r})")
+            f"build_madm: {name}={value!r} is not ported to madm_torch yet (it takes {ported!r}; "
+            "ROADMAP §A3)")
 
 
 def build_madm(
@@ -107,10 +118,9 @@ def build_madm(
     if unknown:
         raise ValueError(f"build_madm: unknown config keys {sorted(unknown)} "
                          f"(valid UDA knobs: {sorted(_UDA_KEYS)})")
-    if extra.get("ema_w_unet"):
-        raise NotImplementedError("build_madm: ema_w_unet=True is not ported to madm_torch yet "
-                                  "(ROADMAP §A1)")
     for name, value, ported in (
+            ("without_prompt", bool(extra.get("without_prompt")), False),
+            ("without_prompt_alpha", bool(extra.get("without_prompt_alpha")), False),
             ("unet_block_indices_type", unet_block_indices_type, "after"),
             ("head_fusion", head_fusion, "aspp"),
             ("final_fuse_vae_decoder_feat", final_fuse_vae_decoder_feat, False),
@@ -120,8 +130,6 @@ def build_madm(
             ("input_channel_plus", input_channel_plus, 0),
             ("mask_diff", mask_diff, None),
             ("concat_pixel_shuffle", concat_pixel_shuffle, False),
-            ("add_latent_noise", add_latent_noise, -1.0),
-            ("norm_latent_noise", norm_latent_noise, False),
             ("multi_layer_prompt", multi_layer_prompt, False),
             ("attention_features_res", tuple(attention_features_res or ()), ()),
             ("attention_features_location", tuple(attention_features_location or ()), ()),
@@ -148,8 +156,10 @@ def build_madm(
         vae_channels=tuple(vae_channels) if vae_channels else None,
         crop_size=tuple(crop_size),
         lora_configs=tuple(lora_configs),
-        init_uncond_prompt=bool(extra.get("init_uncond_prompt", False)),
         slide_training=slide_training,
+        add_latent_noise=add_latent_noise,
+        norm_latent_noise=norm_latent_noise,
+        **{k: extra[k] for k in _MODEL_KNOBS if extra.get(k) is not None},
         eval_head=eval_head,
         flash_pack=flash_pack,
     )

@@ -1,7 +1,7 @@
 """MADM: diffusion feature extractor + DAFormer head (port of
 ``madm_tpu/models/madm.py``: the eval passes, single-crop and sliding-window,
-with their four eval heads, the shipped branches of the train-side backbone
-and head, and LoRA adapters).
+with their four eval heads, the train-side backbone and head with the UDA
+step's ablation knobs, and LoRA adapters).
 
 One ``nn.Module`` holds every weight under checkpoint-style names (``vae``,
 ``unet``, ``prompt.clip_project_rgb``, ``feature_projections``,
@@ -15,8 +15,10 @@ dtype=compute_dtype`` gives: fp32 master parameters (and, in the optimizer,
 fp32 moments), cast to the compute dtype at each use so that convs, linears
 and kernels K1/K3 run in it; the frozen VAE is kept in the compute dtype.
 It also holds the EMA teacher's copies (``ema.feature_projections``,
-``ema.sem_seg_head`` with its BN statistics, ``ema.clip_project_others``).
-Eval passes read the student, never the teacher, as JAX's read ``params``.
+``ema.sem_seg_head`` with its BN statistics, ``ema.clip_project_others``, and
+under ``ema_w_unet`` ``ema.unet`` and ``ema.lora``, which the teacher's
+passes then run).  Eval passes read the student, never the teacher, as
+JAX's read ``params``.
 
 ``lora_name`` on a pass merges that adapter into the UNet's attention
 projections for the pass alone (``sd.lora.merge_lora``, functionally, in
@@ -48,7 +50,10 @@ from .sd.scheduler import add_noise, shared_noise
 
 # MADMConfig fields of the JAX package whose other branches the port has not
 # taken yet, with the one value it takes; setting another raises
-_UNPORTED = {"finetune_unet": "all", "ema_w_unet": False, "slide_training": False}
+_UNPORTED = {"slide_training": False}
+# which UNet weights train (JAX ``unet_trainable_mask``, reference
+# ``ldm_diffusers.py:101-121``)
+FINETUNE_UNET = ("all", "no", "attention", "without cross-attention")
 # eval heads of ``eval_forward_ids`` ('auto': 'aspp' where the head fits it, else 'none')
 EVAL_HEADS = ("auto", "aspp", "argmax", "full", "none")
 
@@ -68,7 +73,7 @@ class MADMConfig:
     in_keys: Tuple[str, ...] = ("s0", "s3", "s4", "s5")
     head_channels: int = 256
     same_cond_params: bool = True
-    finetune_unet: str = "all"  # the whole UNet trains (but conv_norm_out / conv_out)
+    finetune_unet: str = "all"  # one of FINETUNE_UNET (see trainable_parameters)
     compute_dtype: torch.dtype = torch.bfloat16
     unet_channels: Optional[Tuple[int, ...]] = None  # None: SD-v1.4 widths
     vae_channels: Optional[Tuple[int, ...]] = None
@@ -77,8 +82,26 @@ class MADMConfig:
     # seed each learned prompt_embed from uncond_inputs when an SD snapshot's
     # text encoder recomputes them (madm_torch.main; reference ldm_base.py:648-650)
     init_uncond_prompt: bool = False
+    # the teacher keeps EMA copies of the UNet and its adapters and its passes
+    # run them (reference --ema_w_unet, cmdise.py:318-321)
     ema_w_unet: bool = False
     slide_training: bool = False
+    # prompt ablations of backbone_forward's prompt_mode (reference
+    # ldm_base.py:893-924): token-row dropout, its detach, gaussian
+    # perturbation (always detached), the random prompt's scale
+    mask_prompt_ratio: float = 0.0
+    detach_mask_prompt: bool = False
+    prompt_perturbation: float = 0.0
+    rand_prompt_scale: float = 0.5
+    prompt_seq_len: Optional[int] = None  # the learned prompts' length (None: 77)
+    # the decoder-regression targets' palette: None (the train palette) or
+    # 'discrete' (ops.palette.DISCRETE_PALETTE)
+    reg_target_palette: Optional[str] = None
+    # extra N(0, add_latent_noise^2) on the mixed pass's noisy latent (-1:
+    # off), and the noisy latent normalised by its global mean and
+    # population std on every pass (ldm_diffusers.py:165-168)
+    add_latent_noise: float = -1.0
+    norm_latent_noise: bool = False
     # the eval head of eval_forward_ids (the JAX package's MADM_FUSED_HEAD):
     # 'aspp' the module embeds and kernel K2 for the fuse layer; 'argmax'
     # the module head to the bottleneck, then K7; 'full' K6 for the dilated
@@ -93,6 +116,9 @@ class MADMConfig:
         for name, value in _UNPORTED.items():
             if getattr(self, name) != value:
                 raise NotImplementedError(f"MADMConfig.{name} is not ported to madm_torch yet")
+        if self.finetune_unet not in FINETUNE_UNET:
+            raise ValueError(f"MADMConfig.finetune_unet {self.finetune_unet!r} is not one of "
+                             f"{FINETUNE_UNET}")
         if self.eval_head not in EVAL_HEADS:
             raise ValueError(f"MADMConfig.eval_head {self.eval_head!r} is not one of {EVAL_HEADS}")
         lora_lib.parse_lora_configs(self.lora_configs)
@@ -106,14 +132,32 @@ class MADMConfig:
         return "s0" in self.out_features
 
 
+def _unet_trains(name: str, mode: str) -> bool:
+    """Whether UNet parameter ``name`` (relative to the UNet) trains under
+    ``finetune_unet=mode`` (JAX ``unet_trainable_mask``): never
+    ``conv_norm_out``/``conv_out``, which lie downstream of the last tap;
+    'attention' only the transformer blocks' weights; 'without
+    cross-attention' all but the cross-attentions ('attn2')."""
+    parts = name.split(".")
+    if mode == "no" or parts[0] in ("conv_norm_out", "conv_out"):
+        return False
+    in_attn = "attentions" in parts
+    if mode == "attention":
+        return in_attn
+    if mode == "without cross-attention":
+        return not (in_attn and "attn2" in parts)
+    return True
+
+
 def trainable_parameters(model: "MADM") -> List[Tuple[str, nn.Parameter]]:
     """(name, parameter) of everything the optimizer updates: the UNet
-    (``finetune_unet='all'``) but ``conv_norm_out``/``conv_out``, which lie
-    downstream of the last tap, the LoRA adapters, and the prompts,
-    projections and head.  The VAE and the EMA copies are frozen (the JAX
-    package's ``split_trainable``)."""
-    frozen = ("vae.", "ema.", "unet.conv_norm_out.", "unet.conv_out.")
-    return [(n, p) for n, p in model.named_parameters() if not n.startswith(frozen)]
+    weights that ``finetune_unet`` trains, the LoRA adapters, and the
+    prompts, projections and head.  The VAE and the EMA copies are frozen
+    (the JAX package's ``split_trainable``)."""
+    mode = model.cfg.finetune_unet
+    return [(n, p) for n, p in model.named_parameters()
+            if not n.startswith(("vae.", "ema."))
+            and (not n.startswith("unet.") or _unet_trains(n[len("unet."):], mode))]
 
 
 class MADM(nn.Module):
@@ -135,8 +179,9 @@ class MADM(nn.Module):
             self.vae = vae_lib.AutoencoderKL(vae_ch)
             self.unet = unet_lib.UNet2DCondition(unet_ch, cfg.unet_block_indices, cfg.flash_pack)
             domains = ["clip_project_rgb"] + ([] if cfg.same_cond_params else ["clip_project_others"])
+            seq_len = cfg.prompt_seq_len or prompt_lib.PROMPT_SEQ_LEN
             self.prompt = nn.ModuleDict(
-                {k: prompt_lib.ClipFeatureProject(unet_ch[0] * 4) for k in domains}
+                {k: prompt_lib.ClipFeatureProject(unet_ch[0] * 4, seq_len) for k in domains}
             )
             self.feature_projections = MultiScaleProjection(
                 cfg.feature_dims, cfg.projection_dim, cfg.out_features)
@@ -152,8 +197,15 @@ class MADM(nn.Module):
                         cfg.feature_dims, cfg.projection_dim, cfg.out_features),
                     "sem_seg_head": DAFormerHead(cfg.projection_dim, cfg.in_keys, cfg.num_classes,
                                                  channels=cfg.head_channels),
-                    "clip_project_others": prompt_lib.ClipFeatureProject(unet_ch[0] * 4),
+                    "clip_project_others": prompt_lib.ClipFeatureProject(unet_ch[0] * 4, seq_len),
                 })
+                if cfg.ema_w_unet:
+                    self.ema["unet"] = unet_lib.UNet2DCondition(unet_ch, cfg.unet_block_indices,
+                                                                cfg.flash_pack)
+                    if self.lora_specs:
+                        self.ema["lora"] = nn.ModuleDict({
+                            name: lora_lib.LoRAAdapter(self.unet, spec["rank"])
+                            for name, spec in self.lora_specs.items()})
         self.register_buffer("uncond_inputs", torch.zeros(1, 77, 768, device=self.device))
         noise = torch.from_numpy(shared_noise(*cfg.latent_size)).permute(0, 3, 1, 2)
         self.register_buffer("shared_noise", noise.contiguous().to(self.device))
@@ -173,11 +225,18 @@ class MADM(nn.Module):
 
     # ------------------------------------------------------------ teacher
     def student_ema_pairs(self) -> List[Tuple[nn.Module, nn.Module]]:
-        """(EMA module, student module) pairs of the teacher's tree."""
+        """(EMA module, student module) pairs of the teacher's tree (JAX
+        ``student_subtree``): projections, head, the target domain's prompt,
+        and under ``ema_w_unet`` the UNet and the adapters."""
         others = "clip_project_rgb" if self.cfg.same_cond_params else "clip_project_others"
-        return [(self.ema["feature_projections"], self.feature_projections),
-                (self.ema["sem_seg_head"], self.sem_seg_head),
-                (self.ema["clip_project_others"], self.prompt[others])]
+        pairs = [(self.ema["feature_projections"], self.feature_projections),
+                 (self.ema["sem_seg_head"], self.sem_seg_head),
+                 (self.ema["clip_project_others"], self.prompt[others])]
+        if self.cfg.ema_w_unet:
+            pairs.append((self.ema["unet"], self.unet))
+            if self.lora_specs:
+                pairs.append((self.ema["lora"], self.lora))
+        return pairs
 
     @torch.no_grad()
     def reset_ema_(self) -> None:
@@ -201,17 +260,43 @@ class MADM(nn.Module):
             return module
         return lambda *args, **kwargs: functional_call(module, weights, args, kwargs)
 
-    def lora_weights(self, lora_name: Optional[str]) -> Dict[str, torch.Tensor]:
+    def lora_weights(self, lora_name: Optional[str], ema: bool = False) -> Dict[str, torch.Tensor]:
         """The UNet weights that adapter ``lora_name`` changes, merged at
         scale alpha / rank (empty for ``None`` or a name the model does not
-        hold, as JAX ``backbone_forward`` skips the merge)."""
+        hold, as JAX ``backbone_forward`` skips the merge); ``ema``: the
+        teacher's adapter into the teacher's UNet (``ema_w_unet``)."""
         if lora_name is None or lora_name not in self.lora_specs:
             return {}
         spec = self.lora_specs[lora_name]
-        adapter = self.lora[lora_name]
+        unet, adapters = (self.ema["unet"], self.ema["lora"]) if ema else (self.unet, self.lora)
+        adapter = adapters[lora_name]
         sites = {f"{path}.weight" for path, _ in adapter.sites()}
-        base = {n: p for n, p in self.unet.named_parameters() if n in sites}
+        base = {n: p for n, p in unet.named_parameters() if n in sites}
         return lora_lib.merge_lora(base, adapter, spec["alpha"] / spec["rank"])
+
+    def prompt_ablation(self, mode: Optional[str], draw: Optional[torch.Tensor]) -> Optional[Callable]:
+        """The map of the unbatched prompt under ``prompt_mode`` (JAX
+        ``conditioning``, ``madm.py:547-558``): 'masked_prompt' drops token
+        rows (detached under ``detach_mask_prompt``), 'prompt_perturbation'
+        adds noise and detaches, 'rand_prompt' replaces the prompt; the
+        first two only where their config value is set.  ``draw``: the
+        values of ``prompt_lib.draw_prompt_ablation``."""
+        cfg = self.cfg
+        if mode is None:
+            return None
+        if draw is None:
+            raise ValueError(f"prompt_mode {mode!r} needs its draw")
+        draw = draw.to(self.device)
+        if mode == "masked_prompt" and cfg.mask_prompt_ratio:
+            def masked(cp):
+                cp = prompt_lib.mask_prompt(cp, draw, cfg.mask_prompt_ratio)
+                return cp.detach() if cfg.detach_mask_prompt else cp
+            return masked
+        if mode == "prompt_perturbation" and cfg.prompt_perturbation:
+            return lambda cp: prompt_lib.perturb_prompt(cp, draw, cfg.prompt_perturbation).detach()
+        if mode == "rand_prompt":
+            return lambda cp: prompt_lib.rand_prompt(cp, draw, cfg.rand_prompt_scale)
+        return None
 
     # ---------------------------------------------------------- backbone
     def _images(self, images) -> torch.Tensor:
@@ -223,19 +308,31 @@ class MADM(nn.Module):
     def backbone_forward(self, images, *, input_modal: str = "others",
                          lora_name: Optional[str] = None, ema_forward: bool = False,
                          timesteps: Optional[torch.Tensor] = None, train: bool = False,
-                         ) -> Dict[str, object]:
+                         prompt_mode: Optional[str] = None,
+                         prompt_draw: Optional[torch.Tensor] = None,
+                         latent_noise: Optional[torch.Tensor] = None,
+                         unet: Optional[nn.Module] = None,
+                         prompt: Optional[nn.ModuleDict] = None,
+                         features: bool = True) -> Dict[str, object]:
         """One diffusion feature pass: NHWC images in [0, 1] ->
-        ``{'output_features': {name: NCHW}, 'before_vae_decoder': eps,
-        'after_vae_decoder': clip(decoded eps, -1, 1)}`` (the decoder entries
-        when s0 is tapped; the clipped one on train and teacher passes only,
-        which read it).  ``timesteps`` [B] (default 0) noise the latent;
-        ``lora_name`` merges that adapter into the UNet for this pass;
-        ``ema_forward`` takes the teacher's prompt and projections (and the
-        student's UNet and adapter, as JAX does without ``ema_w_unet``);
-        ``train`` builds the autograd graph.  The VAE runs without one: the
-        encoder is frozen, and the s0 decoder reads ``eps.detach()`` (JAX
-        stops the gradient at its output), so no gradient reaches the VAE's
-        D=512 attention."""
+        ``{'output_features': {name: NCHW}, 'unet_taps': [NCHW, smallest
+        resolution first], 'before_vae_decoder': eps, 'after_vae_decoder':
+        clip(decoded eps, -1, 1)}`` (the decoder entries when s0 is tapped;
+        the clipped one on train and teacher passes only, which read it).
+        ``timesteps`` [B] (default 0) noise the latent; ``lora_name`` merges
+        that adapter into the UNet for this pass; ``ema_forward`` takes the
+        teacher's prompt and projections, and its UNet and adapter under
+        ``ema_w_unet`` (else the student's, as in JAX); ``train`` builds the
+        autograd graph.  ``prompt_mode`` and ``prompt_draw`` apply a prompt
+        ablation (``prompt_ablation``); ``latent_noise`` [B, 4, h, w] N(0, 1)
+        is the ``add_latent_noise`` draw, added on 'mixed' passes only.
+        ``unet`` and ``prompt`` replace the student's UNet and prompt sets
+        (the ``fd`` baseline); ``features=False`` stops after the UNet
+        (``unet_taps`` and ``before_vae_decoder`` only: the passes whose
+        losses read no head).  The VAE runs without a graph: the encoder is
+        frozen, and the s0 decoder reads ``eps.detach()`` (JAX stops the
+        gradient at its output), so no gradient reaches the VAE's D=512
+        attention."""
         cfg = self.cfg
         vae_dtype = self.vae.quant_conv.weight.dtype
         x = (self._images(images) * 2.0 - 1.0).permute(0, 3, 1, 2).to(vae_dtype)
@@ -246,15 +343,31 @@ class MADM(nn.Module):
             timesteps = torch.zeros(b, dtype=torch.long, device=self.device)
         timesteps = torch.as_tensor(timesteps, device=self.device).long().expand(b)
         noisy = add_noise(latents, self.shared_noise.expand_as(latents).to(latents.dtype), timesteps)
+        if cfg.add_latent_noise != -1.0 and input_modal == "mixed":
+            if latent_noise is None:
+                raise ValueError("add_latent_noise needs the latent_noise draw on a 'mixed' pass")
+            noisy = noisy + latent_noise.to(self.device, noisy.dtype) * cfg.add_latent_noise
+        if cfg.norm_latent_noise:  # global mean and population std (jnp.std)
+            noisy = (noisy - noisy.mean()) / noisy.std(correction=0)
         with torch.set_grad_enabled(train):
             if ema_forward:
                 p = self.ema["clip_project_others"]
             else:
-                p = prompt_lib.select_domain_params(self.prompt, input_modal, cfg.same_cond_params)
-            cond_prompt, cond_time = prompt_lib.conditioning_of(p, self.uncond_inputs, b)
-            unet = self._compute(self.unet, self.lora_weights(lora_name))
-            eps, taps = unet(noisy, timesteps, cond_prompt, cond_time)
-            out: Dict[str, object] = {}
+                p = prompt_lib.select_domain_params(self.prompt if prompt is None else prompt,
+                                                    input_modal, cfg.same_cond_params)
+            cond_prompt, cond_time = prompt_lib.conditioning_of(
+                p, self.uncond_inputs, b, self.prompt_ablation(prompt_mode, prompt_draw))
+            teacher_unet = ema_forward and cfg.ema_w_unet
+            if unet is None:
+                unet = self.ema["unet"] if teacher_unet else self.unet
+                weights = self.lora_weights(lora_name, ema=teacher_unet)
+            else:
+                weights = {}
+            eps, taps = self._compute(unet, weights)(noisy, timesteps, cond_prompt, cond_time)
+            out: Dict[str, object] = {"unet_taps": taps}
+            if not features:
+                out["before_vae_decoder"] = eps
+                return out
             feats: List[torch.Tensor] = []
             if cfg.use_s0:
                 with torch.no_grad():

@@ -1,4 +1,5 @@
-"""DACS class mix and strong augmentations (port of ``madm_tpu/ops/dacs.py``).
+"""DACS class mix, strong augmentations and MIC block masking (port of
+``madm_tpu/ops/dacs.py``).
 
 Each random transform is two functions: ``draw_*`` takes its random values
 from an explicit ``torch.Generator`` and returns them; the transform applies
@@ -174,3 +175,28 @@ def strong_transform(images: torch.Tensor, jitter: JitterDraw,
     """colour jitter, then gaussian blur when ``blur`` is drawn."""
     x = color_jitter(images, jitter)
     return x if blur is None else gaussian_blur(x, blur)
+
+
+# ------------------------------------------------------------ block masking
+def draw_block_mask(generator: torch.Generator, batch: int, h: int, w: int,
+                    block_size: int = 32) -> torch.Tensor:
+    """U[0, 1) scores [B, mh, mw, 1] of the MIC mask's blocks, mh =
+    round(h / block_size) (Python's round: half to even, as in the JAX
+    package)."""
+    mh, mw = round(h / block_size), round(w / block_size)
+    return torch.rand(batch, mh, mw, 1, generator=generator, device=generator.device)
+
+
+def block_mask(scores: torch.Tensor, hw, mask_ratio: float = 0.7) -> torch.Tensor:
+    """[B, H, W, 1] float mask, 1 = keep, where a block's score exceeds
+    ``mask_ratio``; blocks are nearest-resized to (H, W) sampling at pixel
+    centres (``jax.image.resize(..., 'nearest')`` is torch's 'nearest-exact')."""
+    keep = (scores > mask_ratio).float().permute(0, 3, 1, 2)
+    return F.interpolate(keep, size=tuple(hw), mode="nearest-exact").permute(0, 2, 3, 1)
+
+
+def mask_image(images: torch.Tensor, scores: torch.Tensor, mask_ratio: float = 0.7,
+               fill: float = 0.5) -> torch.Tensor:
+    """MIC block masking of NHWC images in [0, 1]: masked pixels -> ``fill``."""
+    m = block_mask(scores.to(images.device), images.shape[1:3], mask_ratio)
+    return images * m + fill * (1.0 - m)

@@ -21,6 +21,26 @@ DELIVER_11_PALETTE = (
 )
 
 
+# The fixed high-contrast palette of ``reg_target_palette='discrete'``
+# (reference ``mtmadise.py:86-91``): the decoder-regression targets only;
+# reg_uncertain's distance table stays the train palette (``mtmadise.py:92-94``)
+DISCRETE_PALETTE = (
+    255, 0, 255, 0, 255, 0, 127, 255, 127, 255, 127, 127, 0, 255, 255,
+    255, 255, 0, 0, 0, 255, 255, 0, 0, 127, 0, 127, 255, 255, 255, 0, 0, 0,
+)
+
+
+def reg_target_table(train_palette: Sequence[int], reg_target_palette=None) -> np.ndarray:
+    """[256, 3] colour table of the decoder-regression targets: the train
+    palette's, or for 'discrete' the fixed ``DISCRETE_PALETTE``'s (the only
+    other value the reference accepts, ``mtmadise.py:83-86``)."""
+    if reg_target_palette is None:
+        return palette_table(train_palette)
+    if reg_target_palette != "discrete":
+        raise ValueError(f"reg_target_palette must be None or 'discrete', got {reg_target_palette!r}")
+    return palette_table(DISCRETE_PALETTE)
+
+
 def palette_table(palette: Sequence[int], num_entries: int = 256) -> np.ndarray:
     """Flat [r0, g0, b0, r1, ...] -> [256, 3] float table in [0, 1]; entries
     past the palette (255 among them) are black, as PIL pads a 'P' palette."""

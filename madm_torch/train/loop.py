@@ -7,29 +7,37 @@ per-step metrics.  The state lives on the card unless the caller passes
 
 ``synthetic_batches`` makes seeded stand-in batches (images uniform in
 [0, 1], labels of a few class blobs with some ignored pixels) for running
-without a dataset.
+without a dataset, with the extra images an ablation reads on request.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 import torch
 
 from ..device import resolve_device
 from ..models.madm import MADM, MADMConfig, init_random_
-from .train_step import TrainConfig, TrainState, make_train_state, train_step
+from .train_step import (
+    TrainConfig,
+    TrainState,
+    add_feature_distance_baseline,
+    make_train_state,
+    train_step,
+)
 
 BLOBS = 6  # class discs per synthetic label map
 
 
 def synthetic_batches(batch_size: int, crop: Tuple[int, int], num_classes: int,
-                      generator: torch.Generator) -> Iterator[Dict[str, torch.Tensor]]:
+                      generator: torch.Generator,
+                      extra: Sequence[str] = ()) -> Iterator[Dict[str, torch.Tensor]]:
     """Endless seeded batches on the generator's device: 'source_rgb' and
     'target_second_modality' uniform in [0, 1]; 'source_label' a random
     background class with ``BLOBS`` discs of random classes and one
-    rectangle of ignored (255) pixels per image."""
+    rectangle of ignored (255) pixels per image; and each key of ``extra``
+    ('source_pl_data', 'target_second_modality_pha') uniform in [0, 1]."""
     dev = generator.device
     h, w = crop
     ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
@@ -48,18 +56,21 @@ def synthetic_batches(batch_size: int, crop: Tuple[int, int], num_classes: int,
             y0, x0 = int(rand(()) * h * 0.8), int(rand(()) * w * 0.8)
             lbl[y0:y0 + h // 10, x0:x0 + w // 10] = 255
             labels.append(lbl)
-        yield {"source_rgb": rand(batch_size, h, w, 3), "source_label": torch.stack(labels),
-               "target_second_modality": rand(batch_size, h, w, 3)}
+        batch = {"source_rgb": rand(batch_size, h, w, 3), "source_label": torch.stack(labels),
+                 "target_second_modality": rand(batch_size, h, w, 3)}
+        batch.update({k: rand(batch_size, h, w, 3) for k in extra})
+        yield batch
 
 
 def init_train_state(model_cfg: MADMConfig, train_cfg: TrainConfig, device: str = "cuda",
                      seed: int = 0) -> TrainState:
     """A trainable model on seeded random weights (no checkpoint is in the
-    repository) with its optimizer."""
+    repository) with its optimizer, and the fd baseline when ``train_cfg.fd``."""
     dev = resolve_device(device)
     model = init_random_(MADM(model_cfg, device=dev, trainable=True),
                          torch.Generator(device=dev).manual_seed(seed))
-    return make_train_state(model, train_cfg)
+    state = make_train_state(model, train_cfg)
+    return add_feature_distance_baseline(state) if train_cfg.fd else state
 
 
 def train(state: TrainState, batches: Iterable[Dict[str, torch.Tensor]], steps: int,

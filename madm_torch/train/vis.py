@@ -13,11 +13,12 @@ Panels (``mtmadise.py:559-569`` and the conditionals of the shipped branch):
 - mixup_modal / mixup_pred / mixup_label
 - source_vae_decoder_out / target_vae_decoder_out (``'s'``/``'t'`` in
   vae_decoder_loss; ``:590-598``)
+- masked_image / masked_image_pred (``mic``, ``mic_reg``; ``:572-576``)
 - pl_reg / pl_prob_reg / pl_prob_{pseudo_val} (``reg_uncertain``; ``:599-604``)
 
 The passes take the train step's adapters (``pass_adapters``; JAX
-``vis.py:44-46``).  The MIC panels and the attention overlays belong to
-branches the port has not taken (ROADMAP §A1, §A3).
+``vis.py:44-46``).  The attention overlays belong to attention capture,
+which the port has not taken (ROADMAP §A3).
 """
 
 from __future__ import annotations
@@ -80,10 +81,21 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
         out["source_pred"] = logits_at(src, source.shape[1:3])
         if "s" in tc.vae_decoder_loss and cfg.use_s0:
             out["source_vae_decoder_out"] = decoded01(src["before_vae_decoder"])
-        mix = model.backbone_forward(mixed_img, input_modal="mixed", lora_name=tgt_lora)
+        mix = model.backbone_forward(mixed_img, input_modal="mixed", lora_name=tgt_lora,
+                                     latent_noise=draws.get("latent_noise"))
         out["mixup_pred"] = logits_at(mix, mixed_img.shape[1:3])
         if "t" in tc.vae_decoder_loss and cfg.use_s0:
             out["target_vae_decoder_out"] = decoded01(mix["before_vae_decoder"])
+
+        # MIC masked panel: the step's masked target and its prediction
+        if tc.mic or tc.mic_reg:
+            masked = dacs.strong_transform(target, draws["mic_jitter"],
+                                           draws["mic_blur"] if tc.blur else None)
+            masked = dacs.mask_image(masked, draws["mic_mask"], tc.mask_ratio)
+            out["masked_image"] = masked
+            if tc.mic:
+                mic = model.backbone_forward(masked, input_modal="others", lora_name=tgt_lora)
+                out["masked_image_pred"] = logits_at(mic, target.shape[1:3])
 
         # reg_uncertain palette-distance panels
         if tc.reg_uncertain and cfg.use_s0:
@@ -119,6 +131,10 @@ def build_vis_data(host: Dict[str, np.ndarray], tc: TrainConfig, iteration: int)
         p("logits", "mixup_pred", "mixup_pred"),
         p("label", "mixup_label", "mixup_label"),
     ]
+    if "masked_image" in host:
+        vis.append(p("image", "masked_image", "masked_image"))
+    if "masked_image_pred" in host:
+        vis.append(p("logits", "masked_image_pred", "masked_image_pred"))
     if "source_vae_decoder_out" in host:
         vis.append(p("image", "source_vae_decoder_out", "source_vae_decoder_out"))
     if "target_vae_decoder_out" in host:

@@ -150,11 +150,9 @@ def test_built_model_and_train_config_equal_jax(name, data_root):
     assert str(model.cfg.compute_dtype).split(".")[-1] == jmodel.cfg.compute_dtype.__name__
     tc, jtc = build_train_config(port), jax_build_train_config(ref, jmodel.cfg)
     for f in dataclasses.fields(TrainConfig):
-        if f.name in ("train_palette", "lr", "weight_decay", "grad_clip"):
+        if f.name in ("train_palette", "lr", "weight_decay", "grad_clip", "unet_lr", "schedule"):
             continue
-        # reg_target_palette is a model field in the JAX package
-        want = getattr(jtc, f.name) if hasattr(jtc, f.name) else getattr(jmodel.cfg, f.name)
-        assert getattr(tc, f.name) == want, f.name
+        assert getattr(tc, f.name) == getattr(jtc, f.name), f.name
     assert tc.train_palette == tuple(ref.dataloader.evaluator[0].palette) == tuple(jmodel.cfg.train_palette)
     assert (tc.lr, tc.weight_decay, tc.grad_clip) == (5e-6, 0.05, 0.01)
 
@@ -162,7 +160,8 @@ def test_built_model_and_train_config_equal_jax(name, data_root):
 def test_unported_config_values_raise(data_root):
     port = LazyConfig.load(_config("port", "depth_11"))
     for ov, what in ((["model.input_channel_plus=1"], "input_channel_plus"),
-                     (["model.mic=True"], "mic"), (["optimizer.name='adafactor'"], "optimizer.name")):
+                     (["model.fd_attention=1.0"], "fd_attention"),
+                     (["optimizer.name='adafactor'"], "optimizer.name")):
         cfg = LazyConfig.apply_overrides(LazyConfig.load(_config("port", "depth_11")), ov + overrides(data_root))
         with pytest.raises(NotImplementedError, match=what):
             instantiate(dict(cfg.model, device="cpu"))
@@ -221,8 +220,12 @@ def test_rcs_class_probs_equal_jax(data_root):
 
 
 def test_unported_dataset_ablations_raise(data_root):
-    with pytest.raises(NotImplementedError, match="remove_texture"):
-        CrossModalityDataset(**_dataset_kwargs(data_root, "train"), remove_texture=True)
+    """Every dataset ablation is ported (``tests/test_torch_ablation_cli.py``);
+    the one combination the JAX dataset refuses, remove_amp with
+    remove_texture, raises in both."""
+    for cls in (CrossModalityDataset, JaxDataset):
+        with pytest.raises(AssertionError):
+            cls(**_dataset_kwargs(data_root, "train"), remove_amp=[0.01, 0.1], remove_texture=True)
 
 
 # -------------------------------------------------------------- checkpoints
@@ -378,8 +381,9 @@ def test_cli_eval_only_reproduces_the_training_eval(cli_run, data_root, tmp_path
                                                          if k.startswith("eval/")}
 
 
-@pytest.mark.parametrize("flag", [["--MIC"], ["--num_chips", "2"], ["--distributed"], ["--warmup_lr"],
-                                  ["--remove_texture"], ["--ema_w_unet"], ["--prompt_seq_len", "40"]])
+@pytest.mark.parametrize("flag", [["--FD_attention", "1.0"], ["--num_chips", "2"], ["--distributed"],
+                                  ["--with_clip", "learnable_clip"], ["--slide_training"],
+                                  ["--multi_layer_prompt"], ["--target_attention_loss"]])
 def test_cli_refuses_unported_flags(flag, data_root, tmp_path):
     argv = cli_argv(data_root, tmp_path)
     ins = argv.index("--output")

@@ -3,9 +3,10 @@ tests write: the ``.safetensors`` reader (F32, F16, BF16, I64, bit for bit),
 ``load_torch_file``, an HF SD-v1.4 snapshot (its converted path set equal to
 the JAX model's parameters, then both packages' eval logits with and without
 ``text_encoder/``), a released MADM ``.pth`` in the reference's layout (peft
-keys, nonzero B, ``ema_*``, ``num_batches_tracked``, ``in_index``), the
-refusals (an ``ema_unet`` file, an unknown head key, a key or a shape the
-model lacks), ``resume_or_load`` from a released file, and the CLI with
+keys, nonzero B, ``ema_*``, ``num_batches_tracked``, ``in_index``), an
+``ema_unet`` file of an ``--ema_w_unet`` run, the refusals (an unknown head
+key, a key or a shape the model lacks), ``resume_or_load`` from a released
+file, and the CLI with
 ``--sd-snapshot``, ``--lora_configs``, ``--init_uncond_prompt`` and
 ``--init-from released.pth``.
 
@@ -334,11 +335,22 @@ def test_released_logits_with_depth_adapter_equal_jax(released, jax_eval):
     assert np.abs(out - port.eval_forward(torch.from_numpy(x)).numpy()).max() > 1e-2
 
 
-def test_ema_unet_file_raises(released):
+def test_ema_unet_file_converts_as_jax(released):
+    """A file of an ``--ema_w_unet`` run: the teacher's UNet and adapters
+    under ``ldm_extractor.ema_unet`` go to ``ema.unet`` and ``ema.lora``, as
+    the JAX converter takes them into its EMA tree."""
     sd = torch.load(released[1][(0, 1, 2, 3)])["model"]
-    sd[EMA_UNET + "conv_in.weight"] = sd[EMA_UNET.replace("ema_unet", "unet") + "conv_in.weight"]
-    with pytest.raises(NotImplementedError, match="ema_w_unet"):
-        convert_madm_pth(sd)
+    unet = EMA_UNET.replace("ema_unet", "unet")
+    for k in [k for k in sd if k.startswith(unet)]:
+        sd[EMA_UNET + k[len(unet):]] = sd[k] * 1.5
+    ours = convert_madm_pth(sd)
+    ref = state_dict_from_jax({"ema": jconv.convert_madm_pth({k: v.numpy() for k, v in sd.items()})["ema"]})
+    ema = {k: v for k, v in ours.items() if k.startswith(("ema.unet.", "ema.lora."))}
+    assert ema and set(ema) == {k for k in ref if k.startswith(("ema.unet.", "ema.lora."))}
+    assert any(k.startswith("ema.lora.Depth.") for k in ema)
+    for k, v in ema.items():
+        np.testing.assert_allclose(v.float().numpy(), ref[k].numpy(), rtol=0, atol=0, err_msg=k)
+        assert torch.equal(v, ours[k[len("ema."):]] * 1.5), k
 
 
 def test_unknown_head_key_raises_in_both(released):

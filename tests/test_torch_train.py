@@ -9,8 +9,12 @@ on the test's own object) is compiled once and takes one step; the port takes
 the same step with the DACS mask the JAX step drew.  The head's conv_seg is
 scaled up so that the teacher is confident on part of the image and the
 pseudo-weighted terms are not zero.  Also here: the train-mode head alone,
-the unported flags, and the draws' determinism.
+the flags still unported, each ported ablation flag's branch running on the
+port's own toy step, and the draws' determinism.
 """
+
+import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +35,7 @@ from madm_tpu.train import (
 )
 from madm_torch.checkpoint.from_jax import state_dict_from_jax
 from madm_torch.models.daformer import DAFormerHead
-from madm_torch.models.madm import MADM, MADMConfig
+from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.ops import dacs, palette
 from madm_torch.train import train_step as ts
 from madm_torch.train.train_step import TrainConfig, make_train_state as port_state, train_step
@@ -204,24 +208,133 @@ def test_train_mode_head_matches_jax():
             np.testing.assert_allclose(v.numpy(), new["sem_seg_head." + k].numpy(), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag,value", [(k, v) for k, v in [
-    ("mic", True), ("mic_reg", 1.0), ("fd", 0.5), ("noise_reg", 1.0), ("pl_crop", True),
-    ("mask_prompt_ratio", 0.5), ("prompt_perturbation", 0.1), ("prompt_confidence", 0.5),
-    ("merge_with_pl_data", "linear_mix"), ("remove_texture", True), ("denoise_supervise", 1.0),
-    ("fd_attention", 1.0), ("target_attention_loss", True), ("enable_mixup", False),
-    ("rev_noise_sup", False), ("rev_noise_gradually", False), ("vae_decoder_loss_type", "L2"),
-    ("reg_uncertain", False), ("pseudo_weight_scope", "batch"), ("reg_target_palette", "discrete")]])
+@pytest.mark.parametrize("flag,value", [("fd_attention", 1.0), ("target_attention_loss", True)])
 def test_unported_train_flags_raise(flag, value):
     assert flag in ts._UNPORTED
     with pytest.raises(NotImplementedError, match=flag):
         TrainConfig(**{flag: value})
 
 
-@pytest.mark.parametrize("flag,value", [("ema_w_unet", True), ("slide_training", True),
-                                        ("finetune_unet", "attention")])
+@pytest.mark.parametrize("flag,value", [("slide_training", True)])
 def test_unported_model_flags_raise(flag, value):
     with pytest.raises(NotImplementedError, match=flag):
         MADMConfig(**{flag: value})
+
+
+# --------------------------------------- each ported flag's branch runs
+RUN_STEP = 2500  # half way to rev_noise_end_iter: the teacher's t is 30, not 60 or 0
+
+
+@pytest.fixture(scope="module")
+def flag_base():
+    """A toy model (conv_seg scaled as above, so that pseudo-weights are
+    live), a batch with the ablations' extra images, and the shipped step's
+    metrics from it at step RUN_STEP."""
+    model = init_random_(MADM(MADMConfig(**TOY, compute_dtype=torch.float32), device="cpu",
+                              trainable=True), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for m in (model.sem_seg_head, model.ema["sem_seg_head"]):
+            m.conv_seg.weight.mul_(SEG_SCALE)  # pseudo_val 0.23
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    for k in ("source_pl_data", "target_second_modality_pha"):
+        batch[k] = torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32))
+    return model, batch, _flag_step(model, batch, {}, {})[0]
+
+
+def _flag_step(model, batch, tc_kw, model_kw, prepare=None):
+    """One step of a copy of ``model`` (its config updated by ``model_kw``)
+    at RUN_STEP with ``TrainConfig(**tc_kw)`` and draws from a fixed seed;
+    returns (metrics, the stepped copy)."""
+    m = copy.deepcopy(model)
+    m.cfg = dataclasses.replace(m.cfg, **model_kw)
+    if "finetune_unet" in model_kw:
+        names = {n for n, _ in trainable_parameters(m)}
+        for n, p in m.named_parameters():
+            p.requires_grad_(n in names)
+    if prepare is not None:
+        prepare(m)
+    tc = TrainConfig(**STEP_KW, **tc_kw)
+    state = port_state(m, tc)
+    state.step = RUN_STEP
+    if tc.fd:
+        ts.add_feature_distance_baseline(state)
+        with torch.no_grad():
+            m.unet.conv_in.weight.mul_(1.01)
+    draws = ts.sample_draws(torch.Generator().manual_seed(7), tc, batch["source_label"].long(), 11,
+                            m.sem_seg_head, m.cfg)
+    return train_step(state, batch, draws=draws), m
+
+
+def _perturb_teacher_unet(m):
+    with torch.no_grad():
+        for p in m.ema["unet"].parameters():
+            p.mul_(1.05)
+
+
+# (TrainConfig fields, MADMConfig fields, the metric that shows the branch ran:
+# a key of its own, or (key, 'differs') from the shipped step's, or (key, value))
+PORTED_FLAGS = {
+    "mic": ({"mic": True}, {}, "masked_prompt_consistency_loss"),
+    "mic_reg": ({"mic_reg": 1.0}, {}, "mic_vae_decoder_loss"),
+    "fd": ({"fd": 0.5}, {}, "feature_distance_loss"),
+    "noise_reg": ({"noise_reg": 1.0}, {}, "noise_reg_loss"),
+    "pl_crop": ({"pl_crop": True, "psweight_ignore_top": 40}, {}, ("target_loss", "differs")),
+    "mask_prompt_ratio": ({"mask_prompt_ratio": 0.5}, {"mask_prompt_ratio": 0.5},
+                          "masked_prompt_consistency_loss"),
+    "prompt_perturbation": ({"prompt_perturbation": 0.1}, {"prompt_perturbation": 0.1},
+                            "masked_prompt_consistency_loss"),
+    "prompt_confidence": ({"prompt_confidence": 0.5}, {"rand_prompt_scale": 5.0}, ("target_loss", "differs")),
+    "merge_with_pl_data": ({"merge_with_pl_data": "linear_mix"}, {}, ("source_loss", "differs")),
+    "remove_texture": ({"remove_texture": True}, {}, "masked_prompt_consistency_loss"),
+    "denoise_supervise": ({"denoise_supervise": 1.0}, {}, "denoise_consistency_loss"),
+    "enable_mixup": ({"enable_mixup": False}, {}, ("target_loss", "differs")),
+    "rev_noise_sup": ({"rev_noise_sup": False}, {}, ("pseudo_val", "differs")),
+    "rev_noise_gradually": ({"rev_noise_gradually": False}, {}, ("pseudo_val", "differs")),
+    "vae_decoder_loss_type": ({"vae_decoder_loss_type": "L2"}, {}, ("vae_decoder_source_loss", "differs")),
+    "reg_uncertain": ({"reg_uncertain": False}, {}, ("reg_prob_mean", 0.0)),
+    "pseudo_weight_scope": ({"pseudo_weight_scope": "batch"}, {}, ("target_loss", "differs")),
+    "reg_target_palette": ({}, {"reg_target_palette": "discrete"}, ("vae_decoder_source_loss", "differs")),
+}
+
+
+@pytest.mark.parametrize("flag", list(PORTED_FLAGS))
+def test_ported_train_flags_run(flag_base, flag):
+    """Each step setting that the port now takes is accepted, and its branch
+    runs: the step shows its loss, or a metric the branch moves."""
+    model, batch, base = flag_base
+    tc_kw, model_kw, shows = PORTED_FLAGS[flag]
+    assert flag not in ts._UNPORTED
+    out, _ = _flag_step(model, batch, tc_kw, model_kw)
+    assert all(np.isfinite(v) for v in out.values())
+    if isinstance(shows, str):
+        assert shows not in base and out[shows] != 0.0, (shows, out)
+    elif shows[1] == "differs":
+        assert abs(out[shows[0]] - base[shows[0]]) > 1e-6 * max(1.0, abs(base[shows[0]])), (shows, out, base)
+    else:
+        assert out[shows[0]] == shows[1] != base[shows[0]], (shows, out, base)
+
+
+@pytest.mark.parametrize("flag,value", [("ema_w_unet", True), ("finetune_unet", "attention")])
+def test_ported_model_flags_run(flag_base, flag, value):
+    """``ema_w_unet``: the teacher's passes run its own UNet (moved off the
+    student's, the pseudo-labels change); ``finetune_unet='attention'``:
+    the step moves the UNet's transformer blocks only."""
+    model, batch, base = flag_base
+    if flag == "ema_w_unet":
+        m = MADM(dataclasses.replace(model.cfg, ema_w_unet=True), device="cpu", trainable=True)
+        m.load_state_dict(model.state_dict(), strict=False)
+        m.reset_ema_()
+        out, _ = _flag_step(m, batch, {}, {}, prepare=_perturb_teacher_unet)
+        assert abs(out["pseudo_val"] - base["pseudo_val"]) > 1e-6 or \
+            abs(out["target_loss"] - base["target_loss"]) > 1e-6, (out, base)
+        return
+    out, stepped = _flag_step(model, batch, {}, {flag: value})
+    assert all(np.isfinite(v) for v in out.values())
+    moved = {n for n, p in stepped.unet.named_parameters()
+             if not torch.equal(p, model.unet.get_parameter(n))}
+    attention = {n for n, _ in model.unet.named_parameters() if ".attentions." in f".{n}"}
+    assert moved <= attention and len(moved) > 0.9 * len(attention), sorted(attention - moved)
 
 
 def test_draws_come_from_the_generator():
