@@ -85,7 +85,24 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    equal to the counts derived from its passes (``derived_launches``),
    every trained tensor's gradient finite and nonzero, the branch losses
    nonzero, ms and peak memory; (c) K1 and K3 against their twins at the
-   cross-attentions' key length 100.
+   cross-attentions' key length 100;
+12. the JAX package's optimizer reducers and data parallelism: (a)
+   optimizer.name='adafactor', adafactor with no_momentum, and adamw with
+   mu_dtype='bfloat16': one toy fp32 step of each, CUDA against CPU from
+   one state at phase 6's tolerances (each weight and optimizer state
+   tensor on the rule applied to the CPU's state, ``compare``), then each
+   at full width in bf16, B=1, a warm-up and two steps (K1 104 and K3 64 a
+   step, ms, peak memory, the optimizer state's bytes equal to the
+   reckoning from the trained shapes, every trained tensor finite and on
+   its rule); (b) two ranks spawned on the one card over gloo on CUDA
+   tensors: the toy's two steps at world 2 (B=1 a rank), each from the
+   state of a step at B=2 in one process, against those steps, then the
+   shipped step at full width with ZeRO-1 (each
+   rank K1 104 and K3 64 a step, the model states bit-identical, each
+   rank's peak memory and half the optimizer state; host ms on a shared
+   card are not a scaling figure); (c) the CLI with --distributed at
+   WORLD_SIZE=1 on NCCL (phase 9's run), then --eval-only --init-from its
+   best checkpoint in one process, which must give the same metrics.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -94,9 +111,12 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import copy
 import ctypes
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -143,7 +163,9 @@ from madm_torch.ops.flash_attention import (
     packed_backward_plan,
     packed_forward_plan,
 )
+from madm_torch.parallel import dist as dist_lib
 from madm_torch.train.loop import init_train_state, synthetic_batches, train
+from madm_torch.train.optimizer import factored_dims
 from madm_torch.train.train_step import (
     TrainConfig,
     add_feature_distance_baseline,
@@ -780,8 +802,7 @@ def check_toy_train(cfg=TOY, expected=TRAIN_LAUNCHES, batch=2):
         for n in trained:
             def u(state):
                 st = state.optimizer.state[(named_gpu if state is s_gpu else named_cpu)[n]]
-                m_hat = st["exp_avg"].cpu() / (1 - b1 ** (t + 1))
-                return m_hat / ((st["exp_avg_sq"].cpu() / (1 - b2 ** (t + 1))).sqrt() + 1e-8)
+                return adam_direction(st, b1, b2, 1e-8).float().cpu()
             ulp2 = 2 * torch.finfo(torch.float32).eps * named_cpu[n].detach().abs()
             allowed[n] += 1e-2 * lr + lr * (u(s_gpu) - u(s_cpu)).abs() + ulp2
             diff = (named_gpu[n].detach().cpu() - named_cpu[n].detach()).abs()
@@ -797,10 +818,21 @@ def check_toy_train(cfg=TOY, expected=TRAIN_LAUNCHES, batch=2):
             raise AssertionError(f"toy train step {t} launched {launches}; expected {expected}")
 
 
+def adam_direction(st, b1, b2, eps):
+    """AdamW's u = m^ / (sqrt(v^) + eps) from its state ``st`` after
+    ``st['step']`` updates, in float64, with the bias corrections 1 - b^t
+    formed in fp32 as optax (and the port) form them: 1 - fp32(0.999) is
+    1.3e-5 off 1e-3."""
+    t = np.float32(st["step"])
+    bc1 = float(np.float32(1) - np.float32(b1) ** t)
+    bc2 = float(np.float32(1) - np.float32(b2) ** t)
+    return (st["exp_avg"].double() / bc1) / ((st["exp_avg_sq"].double() / bc2).sqrt() + eps)
+
+
 def unmoved(state, before):
     """Trained tensors that the last step should have moved and did not, or
-    that the optimizer does not hold.  torch's AdamW decays w by lr*wd*w and
-    subtracts lr*u, u = m^/(sqrt(v^) + eps): an element must change where
+    that the optimizer does not hold.  AdamW decays w by lr*wd*w and
+    subtracts lr*u, u = ``adam_direction``: an element must change where
     lr*|u| exceeds lr*wd*|w| plus 2^-22 |w| (an fp32 ulp for each of the two
     roundings).  Elements with |u| far below 1 (a clipped gradient under
     Adam's eps) may rightly stay put at the shipped lr."""
@@ -812,12 +844,153 @@ def unmoved(state, before):
         if g is None or not st:
             faults.append(f"{n}: not stepped by the optimizer")
             continue
-        (b1, b2), t, w = g["betas"], float(st["step"]), before[n]
-        u = (st["exp_avg"] / (1 - b1 ** t)) / ((st["exp_avg_sq"] / (1 - b2 ** t)).sqrt() + g["eps"])
+        w = before[n]
+        u = adam_direction(st, *g["betas"], g["eps"]).float()
         must = (g["lr"] * u.abs() > (g["lr"] * g["weight_decay"] + 2.0 ** -22) * w.abs()).any()
         if bool(must) and torch.equal(p.detach(), w):
             faults.append(f"{n}: not updated")
     return faults
+
+
+F32_UNIT = 2.0 ** -24  # fp32's unit roundoff
+F32_TINY = 2.0 ** -126  # fp32's smallest normal: below it, subnormal spacing rounds absolutely
+
+
+def _moment_dtype(group):
+    """The dtype a rule stores its first moment in: AdamW the parameter's
+    (fp32) unless mu_dtype='bfloat16'; Adafactor bf16 unless 'float32'."""
+    if "betas" in group:
+        return torch.bfloat16 if group["mu_dtype"] == "bfloat16" else torch.float32
+    return torch.float32 if group["mu_dtype"] == "float32" else torch.bfloat16
+
+
+def _decayed(m, b1):
+    """b1 * m of a stored moment, in float64: on a bf16 moment the product is
+    rounded to bf16 (b1 too), as JAX's weak types make optax form it."""
+    if m.dtype == torch.bfloat16:
+        b1 = float(torch.tensor(b1, dtype=torch.bfloat16))
+        return (m.double() * b1).to(torch.bfloat16).double()
+    return b1 * m.double()
+
+
+def rule_step(group, st, g, w):
+    """One update of the weight ``w`` by the rule of ``group`` (a parameter
+    group of the port's AdamW or Adafactor as its state dict holds it),
+    written out from optax 0.2.6's formulas in float64, from the state
+    ``st`` before the step and the clipped gradient ``g``; the scalar decays
+    in fp32, as optax forms them.  Returns (state after, weight after,
+    slack of each state tensor, slack of the weight): the slack bounds how
+    far the port's fp32 arithmetic may round from this, 32 unit roundoffs of
+    the magnitudes that enter (plus twice the lengths of Adafactor's
+    means), one bf16 ulp where a moment is stored in bf16, one fp32 ulp of
+    the weight, and fp32's smallest normal (squares of tiny gradients fall
+    among the subnormals)."""
+    g, w = g.double(), w.double()
+    t = st.get("step", 0) + 1
+    rel = 32 * F32_UNIT
+    new, slack = {"step": t}, {}
+    zero = torch.zeros_like(g)
+    if "betas" in group:  # AdamW: u = m^/(sqrt(v^) + eps); w -= lr (u + wd w)
+        b1, b2 = group["betas"]
+        bm = _decayed(st["exp_avg"], b1) if st else zero
+        new["exp_avg"] = bm + (1 - b1) * g
+        new["exp_avg_sq"] = (b2 * st["exp_avg_sq"].double() if st else zero) + (1 - b2) * g * g
+        size = bm.abs() + (1 - b1) * g.abs()
+        slack["exp_avg"], slack["exp_avg_sq"] = rel * size, rel * new["exp_avg_sq"]
+        u = adam_direction(new, b1, b2, group["eps"])
+        mag = adam_direction(dict(new, exp_avg=size), b1, b2, group["eps"])
+        step = group["lr"] * (u + group["weight_decay"] * w)
+        mag = group["lr"] * (mag + group["weight_decay"] * w.abs())
+    else:  # Adafactor: m = (1 - b1) lr u + b1 m; w -= m + wd w
+        d = np.float32(1) - np.float32(t) ** np.float32(-0.8)
+        keep, fresh = float(d), float(np.float32(1) - d)
+        g2 = g * g + 1e-30
+        shape = tuple(g.shape)
+        order = np.argsort(shape)
+        if len(shape) >= 2 and shape[order[-2]] >= 128:  # factored over the two largest axes
+            d1, d0 = int(order[-2]), int(order[-1])
+            rel += 2 * (shape[d0] + shape[d1]) * F32_UNIT
+            r = (keep * st["v_row"].double() if st else 0.0) + fresh * g2.mean(d0)
+            c = (keep * st["v_col"].double() if st else 0.0) + fresh * g2.mean(d1)
+            row = (r / r.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).rsqrt()
+            u = g * row.unsqueeze(d0) * c.rsqrt().unsqueeze(d1)
+            new["v_row"], new["v_col"] = r, c
+            slack["v_row"], slack["v_col"] = rel * r, rel * c
+        else:
+            new["v"] = (keep * st["v"].double() if st else zero) + fresh * g2
+            slack["v"] = rel * new["v"]
+            u = g * new["v"].rsqrt()
+        u = group["lr"] * u
+        m, mag = u, u.abs()
+        if group["b1"] is not None:
+            bm = _decayed(st["exp_avg"], group["b1"]) if st else zero
+            m = (1 - group["b1"]) * u + bm
+            mag = (1 - group["b1"]) * mag + bm.abs()
+            new["exp_avg"], slack["exp_avg"] = m, rel * mag
+        step = m + group["weight_decay"] * w
+        mag = mag + group["weight_decay"] * w.abs()
+    if "exp_avg" in new and _moment_dtype(group) == torch.bfloat16:
+        slack["exp_avg"] = slack["exp_avg"] + 2.0 ** -8 * new["exp_avg"].abs()
+    w_new = w - group["lr_scale"] * step
+    slack = {k: v + F32_TINY for k, v in slack.items()}
+    w_slack = rel * group["lr_scale"] * mag + 2 * F32_UNIT * torch.maximum(w.abs(), w_new.abs()) + F32_TINY
+    return new, w_new, slack, w_slack
+
+
+def snapshot(state, device=None):
+    """What ``off_rule`` reckons a step from, in the optimizer's order: the
+    trained parameters' names, weights and gradients (zeros where none),
+    the whole optimizer state (consolidated on rank 0 under ZeRO-1, None on
+    the other ranks; every rank must call this) and the head's BN
+    statistics; copies on ``device``, or the live tensors."""
+    opt = dist_lib.consolidated_state_dict(state.optimizer)
+
+    def keep(t):
+        return t.detach() if device is None else t.detach().to(device, copy=True)
+
+    names = {id(p): n for n, p in trainable_parameters(state.model)}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    if opt is not None:
+        opt = {"param_groups": copy.deepcopy(opt["param_groups"]),
+               "state": {i: {k: keep(v) if torch.is_tensor(v) else v for k, v in st.items()}
+                         for i, st in opt["state"].items()}}
+    return {"names": [names[id(p)] for p in params], "params": [keep(p) for p in params],
+            "grads": [keep(p.grad) if p.grad is not None else torch.zeros_like(keep(p)) for p in params],
+            "opt": opt, "bn": {n: keep(b) for n, b in state.model.named_buffers()
+                               if n.endswith(("running_mean", "running_var"))}}
+
+
+def off_rule(start, end):
+    """How far each trained tensor's weight and optimizer state in the
+    snapshot ``end`` lie from ``rule_step`` applied to the snapshot
+    ``start`` with ``end``'s gradients, in units of their slack: (the
+    largest such ratio, faults).  A ratio <= 1 and no fault pass; a fault
+    names a tensor beyond its slack or not finite, or whose state keys,
+    step or moment dtype differ from the rule's.  The groups' lr is
+    ``end``'s (the step's)."""
+    worst, faults = 0.0, []
+    for group in end["opt"]["param_groups"]:
+        for i in group["params"]:
+            name, w1, st1 = end["names"][i], end["params"][i], end["opt"]["state"].get(i, {})
+            dev = w1.device
+            st0 = {k: v.to(dev) if torch.is_tensor(v) else v
+                   for k, v in start["opt"]["state"].get(i, {}).items()}
+            new, w_exp, slack, w_slack = rule_step(group, st0, end["grads"][i].to(dev),
+                                                   start["params"][i].to(dev))
+            if set(st1) != set(new) or st1["step"] != new["step"] or (
+                    "exp_avg" in st1 and st1["exp_avg"].dtype != _moment_dtype(group)):
+                faults.append(f"{name}: state {sorted(st1)} at step {st1.get('step')}, the rule's "
+                              f"{sorted(new)} at step {new['step']}")
+                continue
+            r = ((w1.double() - w_exp).abs() / w_slack).max().item()
+            for k, v in slack.items():
+                r = max(r, ((st1[k].to(dev).double() - new[k]).abs() / v).max().item())
+            if not torch.isfinite(w1).all():
+                faults.append(f"{name}: not finite")
+            elif not r <= 1.0:
+                faults.append(f"{name}: {r:.3e} of the rule's slack")
+            worst = max(worst, r)
+    return worst, faults
 
 
 def grad_groups(model):
@@ -1615,13 +1788,407 @@ def run_ablation_full(card):
     return rows
 
 
+
+# ------------------------------------------------------------------ phase 12
+# the JAX package's optimizer reducers (TrainConfig fields as build_train_config
+# sets them from optimizer.name / no_momentum / mu_dtype)
+REDUCERS = {"adafactor": dict(optimizer="adafactor"),
+            "adafactor no_momentum": dict(optimizer="adafactor", b1=None),
+            "adamw mu bf16": dict(mu_dtype="bfloat16")}
+
+
+def state_bytes(states):
+    """Bytes of the tensors of an optimizer's ``state`` mapping (under
+    ZeRO-1 a rank's shard is the wrapped optimizer's, ``optimizer.optim``)."""
+    return sum(t.numel() * t.element_size() for st in states.values()
+               for t in st.values() if torch.is_tensor(t))
+
+
+def reckoned_state_bytes(tc, params):
+    """The optimizer state's bytes as reckoned from the trained shapes:
+    AdamW a first moment (fp32 or bf16) and an fp32 second; Adafactor an
+    fp32 row and column of each factored tensor (its two largest axes, the
+    second at least 128) or an fp32 v, and a momentum (bf16 unless
+    mu_dtype='float32') unless b1 is None."""
+    total = 0
+    for p in params:
+        n = p.numel()
+        if tc.optimizer == "adamw":
+            total += n * (2 if tc.mu_dtype == "bfloat16" else 4) + 4 * n
+            continue
+        dims = factored_dims(tuple(p.shape))
+        total += 4 * (n if dims is None else n // p.shape[dims[1]] + n // p.shape[dims[0]])
+        if tc.b1 is not None:
+            total += n * (4 if tc.mu_dtype == "float32" else 2)
+    return total
+
+
+def steps_on_rows(tc, steps, seed, device, starts=None):
+    """``steps`` UDA steps of the toy on seeded random weights (``seed``;
+    both heads' conv_seg times ``SEG_SCALE``) on seeded synthetic global
+    batches of two rows and their draws, both made on the CPU; under a
+    process group this rank steps on its rows.  ``starts``: the path of another run's ``starts``, loaded
+    (model and optimizer state) before each step, so that each step of the
+    two runs sets out from one state.  Returns, on the CPU: each step's
+    metrics, the ``snapshot`` at its end, and without ``starts`` the
+    snapshot and model state dict at its start; the rank and the world."""
+    state = init_train_state(TOY, tc, device=device, seed=seed)
+    with torch.no_grad():
+        for head in (state.model.sem_seg_head, state.model.ema["sem_seg_head"]):
+            head.conv_seg.weight.mul_(SEG_SCALE)
+    forced = torch.load(starts, weights_only=False) if starts else None
+    gen = torch.Generator().manual_seed(seed + 1)
+    batches = synthetic_batches(2, TOY.crop_size, TOY.num_classes, gen)
+    out = {"metrics": [], "starts": [], "ends": [], "rank": dist_lib.rank(), "world": dist_lib.world()}
+    for t in range(steps):
+        if forced is not None:
+            state.model.load_state_dict(forced[t]["model"])
+            if forced[t]["opt"]["state"]:  # ZeRO-1 keeps this rank's shard of it
+                state.optimizer.load_state_dict(copy.deepcopy(forced[t]["opt"]))
+        else:
+            start = snapshot(state, "cpu")
+            del start["grads"]
+            start["model"] = {k: v.detach().to("cpu", copy=True) for k, v in state.model.state_dict().items()}
+            out["starts"].append(start)
+        rows = {k: v[dist_lib.local_rows(2)] for k, v in next(batches).items()}
+        draws = sample_draws(gen, tc, rows["source_label"], TOY.num_classes, state.model.sem_seg_head, TOY)
+        out["metrics"].append(train_step(state, rows, draws=draws))
+        out["ends"].append(snapshot(state, "cpu"))
+    return out
+
+
+def compare(ref, got):
+    """How far ``got`` (a run forced onto ``ref``'s starts: CUDA against
+    the CPU, or rank 0 of a world-N run against one process) is from
+    ``ref``, each step from one state:
+
+    - ``loss_rel``: the largest relative difference of a metric (every
+      loss, pseudo_val, grad_norm) of any step, over max(|ref|, 1e-3);
+    - ``grad_of_max``: the largest difference of a clipped gradient over
+      the step's largest entry (the clip's factor is grad_clip / grad_norm,
+      which ``loss_rel`` holds), the worst step;
+    - ``state_of_max``: for each optimizer state key, the largest
+      difference over the key's largest entry, the worst step (``got``'s
+      state consolidated on its rank 0);
+    - ``off_rule``: how far ``got``'s weights and optimizer state after a
+      step lie from the rule applied to ``ref``'s state before it with
+      ``got``'s gradient, in units of fp32 rounding's slack (``off_rule``,
+      <= 1 passes), and ``off_rule_ref`` of ``ref``'s own; with ``grad_of_max`` they bound
+      each weight and state tensor by the rule applied to the reference's
+      state: |x_got - x_ref| <= |X(s_ref, g_got) - X(s_ref, g_ref)| plus
+      rounding; ``faults`` names what is off its rule;
+    - ``bn_of_max``: the head's BN statistics after each step, the largest
+      difference over max(1, the largest statistic)."""
+    loss = max(abs(g[k] - v) / max(abs(v), 1e-3)
+               for r, g in zip(ref["metrics"], got["metrics"]) for k, v in r.items())
+    out = {"loss_rel": loss, "grad_of_max": 0.0, "state_of_max": {}, "off_rule": 0.0,
+           "off_rule_ref": 0.0, "faults": [], "bn_of_max": 0.0}
+    for start, r, g in zip(ref["starts"], ref["ends"], got["ends"]):
+        gmax = max(x.abs().max().item() for x in r["grads"])
+        diff = max((a - b).abs().max().item() for a, b in zip(g["grads"], r["grads"]))
+        out["grad_of_max"] = max(out["grad_of_max"], diff / gmax)
+        for key in {k for st in r["opt"]["state"].values() for k, v in st.items() if torch.is_tensor(v)}:
+            pairs = [(g["opt"]["state"][i][key].double(), st[key].double())
+                     for i, st in r["opt"]["state"].items() if key in st]
+            err = (max((a - b).abs().max().item() for a, b in pairs)
+                   / max(b.abs().max().item() for _, b in pairs))
+            out["state_of_max"][key] = max(out["state_of_max"].get(key, 0.0), err)
+        ratio, faults = off_rule(start, g)
+        out["off_rule"], out["faults"] = max(out["off_rule"], ratio), out["faults"] + faults
+        ratio, faults = off_rule(start, r)
+        out["off_rule_ref"], out["faults"] = max(out["off_rule_ref"], ratio), out["faults"] + faults
+        bmax = max(1.0, max(b.abs().max().item() for b in r["bn"].values()))
+        bn = max((g["bn"][n] - b).abs().max().item() for n, b in r["bn"].items()) / bmax
+        out["bn_of_max"] = max(out["bn_of_max"], bn)
+    return out
+
+
+def compare_line(err):
+    return (f"losses and grad_norm max rel err {err['loss_rel']:.3e} (tol 1e-4); clipped gradients "
+            f"{err['grad_of_max']:.3e} of the largest (tol 2e-3); optimizer state of the largest "
+            + ", ".join(f"{k} {v:.3e}" for k, v in sorted(err["state_of_max"].items()))
+            + f"; weights and state off the rule applied to the reference's state: "
+            f"{err['off_rule']:.3e} of fp32 rounding's slack (the reference's own "
+            f"{err['off_rule_ref']:.3e}; tol 1); BN "
+            f"statistics {err['bn_of_max']:.3e} of the largest (tol 1e-5)")
+
+
+def compare_passes(err):
+    return (err["loss_rel"] <= 1e-4 and err["grad_of_max"] <= 2e-3 and err["off_rule"] <= 1.0
+            and err["off_rule_ref"] <= 1.0 and not err["faults"] and err["bn_of_max"] <= 1e-5)
+
+
+def check_reducers_toy():
+    """Phase 12 (a): one shipped-config step of the toy model under each
+    reducer in fp32 (TF32 off), CUDA (kernels) against CPU (twins), from the
+    same state, batch and draws (``compare``): losses and grad_norm to 1e-4
+    relative, the clipped gradients to 2e-3 of the largest entry (phase 6's
+    tolerances), the head's BN statistics to 1e-5 of the largest, each
+    side's weights and optimizer state on the rule applied to the CPU's
+    state with that side's gradient, and the state's bytes as reckoned."""
+    import tempfile
+
+    for name, kw in REDUCERS.items():
+        tc = TrainConfig(**kw)
+        ref = steps_on_rows(tc, 1, SEED + 13, "cpu")
+        with tempfile.TemporaryDirectory(prefix="madm_starts_") as tmp:
+            path = os.path.join(tmp, "starts.pt")
+            torch.save(ref["starts"], path)
+            reset_counts()
+            got = steps_on_rows(tc, 1, SEED + 13, "cuda", starts=path)
+            launches = launch_counts()
+        err = compare(ref, got)
+        end = got["ends"][0]
+        nbytes, reckoned = state_bytes(end["opt"]["state"]), reckoned_state_bytes(tc, end["params"])
+        log(f"phase 12 toy '{name}' step (fp32), CUDA vs CPU: {compare_line(err)}; state {nbytes} B "
+            f"(reckoned {reckoned}); CUDA launches {launches}; "
+            + " ".join(f"{k}={v:.5f}" for k, v in got["metrics"][0].items()))
+        if not (compare_passes(err) and nbytes == reckoned):
+            raise AssertionError(f"phase 12 toy '{name}': CUDA disagrees with the CPU twins: "
+                                 f"{err['faults'][:10]}")
+        if launches != TRAIN_LAUNCHES:
+            raise AssertionError(f"phase 12 toy '{name}' launched {launches}; expected {TRAIN_LAUNCHES}")
+
+
+def run_reducers_full(card):
+    """Phase 12 (a): each reducer at full width (MADMConfig(), shipped
+    TrainConfig, bf16, B=1): a warm-up and two steps through the trainer
+    entry point, with ms, peak memory and launches (K1 104, K3 64) of each;
+    the optimizer state's bytes equal to the reckoning from the trained
+    shapes; after the second step every trained tensor finite, and its
+    weight and optimizer state on its rule (``off_rule``, from a host
+    snapshot taken before the step)."""
+    rows = {}
+    for name, kw in REDUCERS.items():
+        t0 = time.perf_counter()
+        cfg, tc = MADMConfig(), TrainConfig(**kw)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        state = init_train_state(cfg, tc, device="cuda", seed=SEED)
+        batches = synthetic_batches(1, cfg.crop_size, cfg.num_classes, gen)
+        train(state, batches, steps=1, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        ms, peaks = [], []
+        for i in range(2):
+            if i == 1:  # host copies: the measured step's memory stays the step's
+                start = snapshot(state, "cpu")
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start_ev.record()
+            m = train(state, batches, steps=1, generator=gen)[0]
+            end_ev.record()
+            end_ev.synchronize()
+            ms.append(start_ev.elapsed_time(end_ev))
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            launches = launch_counts()
+            if launches != TRAIN_LAUNCHES:
+                raise AssertionError(f"phase 12 '{name}' launched {launches}; expected {TRAIN_LAUNCHES}")
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"phase 12 '{name}': non-finite metrics {m}")
+        ratio, faults = off_rule(start, snapshot(state))
+        nbytes = state_bytes(state.optimizer.state)
+        reckoned = reckoned_state_bytes(tc, state.params)
+        n_train = sum(p.numel() for p in state.params)
+        rows[name] = dict(ms=ms, peak_gib=max(peaks), state_bytes=nbytes)
+        log(f"phase 12 full-width '{name}' B=1 steps {state.step - 1}-{state.step}: "
+            f"{', '.join(f'{x:.1f}' for x in ms)} ms, peak memory {', '.join(f'{x:.2f}' for x in peaks)} "
+            f"GiB; launches {launches} a step; {len(state.params)} trained tensors, {n_train} "
+            f"parameters; optimizer state {nbytes} B = {nbytes / 2 ** 30:.4f} GiB (reckoned "
+            f"{reckoned}); {len(state.params) - len(faults)} trained tensors finite and on their "
+            f"rule (at most {ratio:.3e} of fp32 rounding's slack); " + " ".join(
+                f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms")
+            + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+        if nbytes != reckoned:
+            raise AssertionError(f"phase 12 '{name}': state {nbytes} B, reckoned {reckoned}")
+        if faults:
+            raise AssertionError(f"phase 12 '{name}': {faults[:10]}")
+        del state, batches, start
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _toy_rank(*args):
+    """A rank of phase 12 (b)'s toy run (a spawned process: TF32 off again)."""
+    _no_tf32()
+    return steps_on_rows(*args)
+
+
+def _full_rank(seed):
+    """A rank of phase 12 (b)'s full-width run: the shipped step in bf16 at
+    world 2 (ZeRO-1), B=1 a rank, a warm-up and two steps; each step's ms,
+    peak memory and launches, the optimizer state this rank holds, and a
+    digest of the whole model state (parameters, BN statistics, teacher)."""
+    _no_tf32()
+    cfg, tc = MADMConfig(), TrainConfig()
+    state = init_train_state(cfg, tc, device="cuda", seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    batches = synthetic_batches(2, cfg.crop_size, cfg.num_classes, gen)  # global B=2
+    train(state, batches, steps=1, generator=gen)  # warm-up
+    steps = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        m = train(state, batches, steps=1, generator=gen)[0]
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3, launches=launch_counts(), metrics=m,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+    digest = hashlib.sha256()
+    for k, v in state.model.state_dict().items():
+        digest.update(k.encode())
+        digest.update(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return dict(steps=steps, state_bytes=state_bytes(state.optimizer.optim.state),
+                whole_state_bytes=reckoned_state_bytes(tc, state.params),
+                sharded=type(state.optimizer).__name__, digest=digest.hexdigest(),
+                rank=dist_lib.rank(), world=dist_lib.world())
+
+
+def same_on_ranks(ranks):
+    """Whether every rank's weights, gradients and BN statistics equal rank
+    0's, bit for bit, after every step."""
+    return all(torch.equal(a, b) for r in ranks[1:] for e0, e in zip(ranks[0]["ends"], r["ends"])
+               for key in ("params", "grads") for a, b in zip(e0[key], e[key])) and all(
+        torch.equal(t, e["bn"][n]) for r in ranks[1:] for e0, e in zip(ranks[0]["ends"], r["ends"])
+        for n, t in e0["bn"].items())
+
+
+def run_two_ranks(card):
+    """Phase 12 (b): two ranks on the one card over gloo on CUDA tensors
+    (NCCL refuses two ranks on one device), spawned, each loading phase 2's
+    libraries.  The toy in fp32: two steps at world 2 (B=1 a rank), each
+    from the state of one process's step at B=2 on CUDA, against those
+    steps (``compare``: phase 6's tolerances, the head's BN statistics to
+    1e-5 of the largest, rank 0's consolidated ZeRO-1 state and the weights
+    on the rule applied to the one process's state), and bit-identical
+    across the ranks.  Then the shipped step at full width in bf16 with
+    ZeRO-1: each rank K1 104 and K3 64 a step, the whole model state
+    bit-identical across the ranks, each rank's peak memory and half the
+    optimizer state."""
+    import tempfile
+
+    missing = [n for n in kernels.KERNELS if not kernels.library_path(n).exists()]
+    if missing:  # the ranks load phase 2's builds; none builds
+        raise AssertionError(f"phase 12 (b): no library built for {missing}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tc = TrainConfig()
+    args = (tc, 2, SEED, "cuda")
+    t0 = time.perf_counter()
+    ref = steps_on_rows(*args)
+    with tempfile.TemporaryDirectory(prefix="madm_starts_") as tmp:
+        path = os.path.join(tmp, "starts.pt")
+        torch.save(ref["starts"], path)
+        ranks = dist_lib.run_ranks(_toy_rank, 2, ["cuda:0", "cuda:0"], backend="gloo", args=args + (path,))
+    err = compare(ref, ranks[0])
+    same = same_on_ranks(ranks)
+    log(f"phase 12 toy fp32, world 2 over gloo on one card (B=1 a rank) against one process at B=2 "
+        f"(CUDA), two steps, each from the one process's state: {compare_line(err)}; ranks "
+        f"bit-identical: {same}; pseudo_val {[round(m['pseudo_val'], 5) for m in ref['metrics']]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (compare_passes(err) and same):
+        raise AssertionError(f"phase 12 (b) toy: world 2 disagrees with one process: {err}, same {same}")
+    t0 = time.perf_counter()
+    full = dist_lib.run_ranks(_full_rank, 2, ["cuda:0", "cuda:0"], backend="gloo", args=(SEED,))
+    for r in full:
+        for i, st in enumerate(r["steps"]):
+            log(f"phase 12 full-width bf16 world 2 (gloo, two ranks sharing one card: host ms are "
+                f"not a scaling figure) rank {r['rank']} step {i + 1}: {st['ms']:.1f} ms, peak memory "
+                f"{st['peak_gib']:.2f} GiB; launches {st['launches']}; " + " ".join(
+                    f"{k}={v:.5f}" for k, v in st["metrics"].items() if k != "step_ms") + f" [{card}]")
+            if st["launches"] != TRAIN_LAUNCHES:
+                raise AssertionError(f"phase 12 (b) rank {r['rank']} launched {st['launches']}")
+            if not all(math.isfinite(v) for v in st["metrics"].values()):
+                raise AssertionError(f"phase 12 (b) rank {r['rank']}: {st['metrics']}")
+        log(f"phase 12 full-width world 2 rank {r['rank']}: {r['sharded']}, optimizer state held "
+            f"{r['state_bytes']} B of the whole {r['whole_state_bytes']} B "
+            f"({r['state_bytes'] / r['whole_state_bytes']:.4f}); model state digest {r['digest'][:16]}")
+    if full[0]["digest"] != full[1]["digest"]:
+        raise AssertionError("phase 12 (b): the ranks' model states differ after two steps")
+    if not all(0.45 < r["state_bytes"] / r["whole_state_bytes"] < 0.55 for r in full):
+        raise AssertionError("phase 12 (b): ZeRO-1 does not halve the optimizer state")
+    log(f"phase 12 (b) full width: {time.perf_counter() - t0:.1f} s in all")
+
+
+def run_nccl_cli(card):
+    """Phase 12 (c): the CLI with --distributed at WORLD_SIZE=1 on NCCL
+    (phase 9's depth config, full width, bf16, flash_pack, two iterations
+    at --bs 2 and an eval): NCCL init, the gradient all-reduce, the global
+    BN statistics and a ZeRO-1 state consolidated into its checkpoints; then
+    --eval-only --init-from the best one in a single process must give the
+    same metrics."""
+    import logging
+    import tempfile
+    from pathlib import Path
+
+    from madm_torch.main import main as cli_main
+
+    logging.basicConfig(level=logging.WARNING)
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(dist_lib.free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    with tempfile.TemporaryDirectory(prefix="madm_nccl_") as tmp:
+        root = Path(tmp) / "data"
+        root.mkdir()
+        write_png_dataset(root)
+        out = Path(tmp) / "run"
+        argv = ["--config-file", CLI_CONFIG, "--bs", "2", "--max_iter", "2", "--eval_iter", "2",
+                "--source_root", str(root), "--target_root", str(root), "--output", str(out),
+                f"dataloader.train.dataset.json_path={str(root / 'train.json')!r}",
+                f"dataloader.test.dataset.json_path={str(root / 'test.json')!r}",
+                "train.log_period=1", "model.flash_pack=True"]
+        os.environ.update(env)
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            state = cli_main(["--distributed"] + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        counts = launch_counts()
+        sharded = type(state.optimizer).__name__
+        rows = [json.loads(line) for line in (out / "metrics.json").read_text().splitlines()]
+        results = {k[5:]: v for k, v in rows[-1].items() if k.startswith("eval/")}
+        ckpt = torch.load(out / "model_best.pth", map_location="cpu", weights_only=True)
+        whole = len(ckpt["optimizer"]["state"]) == sum(len(g["params"]) for g in ckpt["optimizer"]["param_groups"])
+        expected = {k: CLI_TRAIN_LAUNCHES.get(k, 0) + CLI_EVAL_LAUNCHES.get(k, 0)
+                    for k in {*CLI_TRAIN_LAUNCHES, *CLI_EVAL_LAUNCHES}}
+        log(f"phase 12 CLI --distributed (WORLD_SIZE=1, NCCL, {sharded}): "
+            f"step {state.step}, {wall:.1f} s in all; eval {results}; launches {counts}; checkpoint "
+            f"optimizer state whole: {whole} ({len(ckpt['optimizer']['state'])} tensors) [{card}]")
+        del state, ckpt
+        gc.collect()
+        torch.cuda.empty_cache()
+        if counts != expected or not whole or sharded != "ZeroRedundancyOptimizer":
+            raise AssertionError(f"phase 12 (c): launches {counts} (expected {expected}), whole {whole}")
+        if not (results and all(math.isfinite(v) for v in results.values())):
+            raise AssertionError(f"phase 12 (c): eval {results}")
+        ins = argv.index("--output")
+        argv2 = argv[:ins] + ["--output", str(Path(tmp) / "eval"), "--eval-only", "--init-from",
+                              str(out / "model_best.pth")] + argv[ins + 2:]
+        reset_counts()
+        again = cli_main(argv2)
+        counts = launch_counts()
+        log(f"phase 12 CLI --eval-only --init-from model_best.pth (one process, no group): eval "
+            f"{again}; launches {counts} [{card}]")
+        torch.cuda.empty_cache()
+        if counts != CLI_EVAL_LAUNCHES or {k: float(again[k]) for k in results} != results:
+            raise AssertionError(f"phase 12 (c): --eval-only gave {again}, the run's eval {results}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
@@ -1684,6 +2251,15 @@ def main() -> int:
     check_flash(gen, PROMPT_CASES)
     check_flash_bwd(gen, PROMPT_CASES)
     phase_done("11 (the step's ablation branches)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_reducers_toy()
+    run_reducers_full(card)
+    phase_done("12 (a) (the optimizer reducers)")
+    run_two_ranks(card)
+    phase_done("12 (b) (two ranks on one card, gloo)")
+    run_nccl_cli(card)
+    phase_done("12 (c) (the CLI on NCCL)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)

@@ -2,8 +2,9 @@
 reference ``checkpoint/odise_checkpointer.py``).
 
 A checkpoint is one ``.pth`` file written by ``torch.save``: ``{"format":
-"madm_torch", "model": state_dict, "optimizer": AdamW state_dict, "step":
-int}``, and ``"consts"`` (the ``fd`` baseline's UNet and prompt state
+"madm_torch", "model": state_dict, "optimizer": the optimizer's state_dict
+(AdamW's moments, or Adafactor's factored rows and columns and its
+momentum, bf16 moments kept bf16), "step": int}``, and ``"consts"`` (the ``fd`` baseline's UNet and prompt state
 dicts) when the state holds them, so that a resumed ``fd`` run keeps the
 target it started with.  The model's ``state_dict`` has the reference key names and holds the
 EMA teacher (``ema.*``) and the head's BN statistics (``running_mean`` /
@@ -22,6 +23,11 @@ snapshot).  Key behaviours as in the JAX package:
 - ``PeriodicCheckpointer``: save ``model_{iter:07d}.pth`` every ``period``
   iterations and at the last, keep ``max_to_keep``.
 - ``BestCheckpointer``: track a metric and keep ``model_best.pth``.
+
+Under a process group, every rank calls ``save`` (the
+ZeRO-1 optimizer state is consolidated on rank 0, in the layout of an
+unsharded optimizer over the same groups) and rank 0 alone writes; every
+rank loads.  So a checkpoint of a run at one world size resumes at another.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel import dist as dist_lib
 from ..train.train_step import add_feature_distance_baseline
 from .converter import convert_madm_pth, merge_into_model
 
@@ -49,18 +56,22 @@ class Checkpointer:
         return os.path.join(self.save_dir, name)
 
     def save(self, name: str, state) -> None:
-        """Write ``<name>.pth`` and point ``last_checkpoint`` at it."""
-        path = self._path(f"{name}.pth")
-        tmp = f"{path}.tmp"
-        ckpt = {"format": FORMAT, "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(), "step": int(state.step)}
-        if state.consts:
-            ckpt["consts"] = {k: m.state_dict() for k, m in state.consts.items()}
-        torch.save(ckpt, tmp)
-        os.replace(tmp, path)
-        with open(os.path.join(self.save_dir, "last_checkpoint"), "w") as f:
-            f.write(os.path.basename(path))
-        logger.info(f"saved checkpoint {path}")
+        """Write ``<name>.pth`` and point ``last_checkpoint`` at it (rank 0;
+        every rank must call it)."""
+        optimizer = dist_lib.consolidated_state_dict(state.optimizer)
+        if dist_lib.is_main():
+            path = self._path(f"{name}.pth")
+            tmp = f"{path}.tmp"
+            ckpt = {"format": FORMAT, "model": state.model.state_dict(), "optimizer": optimizer,
+                    "step": int(state.step)}
+            if state.consts:
+                ckpt["consts"] = {k: m.state_dict() for k, m in state.consts.items()}
+            torch.save(ckpt, tmp)
+            os.replace(tmp, path)
+            with open(os.path.join(self.save_dir, "last_checkpoint"), "w") as f:
+                f.write(os.path.basename(path))
+            logger.info(f"saved checkpoint {path}")
+        dist_lib.barrier()
 
     def load(self, name: str, state):
         """Restore the checkpoint file ``name`` (under the save dir, or an
@@ -141,6 +152,8 @@ class PeriodicCheckpointer:
         self._kept.append(name)
         while len(self._kept) > self.max_to_keep:
             old = self._kept.pop(0)
+            if not dist_lib.is_main():
+                continue
             try:
                 os.remove(self.ckpt._path(f"{old}.pth"))
             except OSError:

@@ -8,8 +8,10 @@ Replaces the reference's detectron2 dataloader builders (``data/build.py``):
 - test (``build_d2_test_dataloader``, ``:103-141``): the test set in order
   (InferenceSampler semantics).
 
-The port runs as one process, so the builders take the whole set
-(shard 0 of 1); the classes keep the shard arguments.  A background thread
+The builders take this rank's shard of ``torch.distributed`` (shard 0 of 1
+without a process group), as JAX's ``_process_shard`` takes the process's:
+train rank r reads positions r, r+R, ... of one permutation drawn from the
+same seed on every rank; test rank r a contiguous block.  A background thread
 decodes/augments the next batches while the card computes (the reference
 uses torch DataLoader worker processes).
 """
@@ -21,6 +23,8 @@ import threading
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from ..parallel import dist as dist_lib
 
 
 def _stack(samples, key):
@@ -90,6 +94,7 @@ class TestLoader:
 
     def __init__(self, dataset, shard_index: int = 0, num_shards: int = 1):
         self.dataset = dataset
+        self.shard_index, self.num_shards = shard_index, num_shards
         n = len(dataset)
         per = (n + num_shards - 1) // num_shards
         self.start = min(shard_index * per, n)
@@ -108,15 +113,27 @@ class TestLoader:
             yield out
 
 
+def _process_shard():
+    """(shard_index, num_shards) = (rank, world size) of the process group
+    (the reference's per-rank split, ``data/build.py:77-100``); (0, 1)
+    without one."""
+    return dist_lib.rank(), dist_lib.world()
+
+
 def build_d2_train_dataloader(dataset, total_batch_size: int, num_workers: int = 0,
                               seed: int = 0, **kwargs) -> TrainLoader:
-    """Config-compatible builder (reference ``data/build.py:64``); one process."""
-    return TrainLoader(dataset, total_batch_size, seed=seed)
+    """Config-compatible builder (reference ``data/build.py:64``): this
+    rank's share of each global batch."""
+    shard, num = _process_shard()
+    return TrainLoader(dataset, total_batch_size, shard_index=shard, num_shards=num, seed=seed)
 
 
 def build_d2_test_dataloader(dataset, local_batch_size: int = 1, num_workers: int = 0,
                              **kwargs) -> TestLoader:
-    """Config-compatible builder (reference ``data/build.py:103``); one
-    process evaluates the whole set."""
+    """Config-compatible builder (reference ``data/build.py:103``): this
+    rank's contiguous shard of the test set (InferenceSampler semantics,
+    ``data/build.py:135-141``); the evaluator sums the confusion matrices
+    over the ranks."""
     assert local_batch_size == 1, "test batch size is 1 per rank (ref data/build.py:129)"
-    return TestLoader(dataset)
+    shard, num = _process_shard()
+    return TestLoader(dataset, shard_index=shard, num_shards=num)

@@ -24,6 +24,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..parallel import dist as dist_lib
+
 logger = logging.getLogger(__name__)
 
 
@@ -69,6 +71,17 @@ def _sum_over_processes(conf: np.ndarray) -> np.ndarray:
         t = t.cuda()
     dist.all_reduce(t)
     return t.cpu().numpy()
+
+
+def _gather_over_processes(items: list) -> list:
+    """Every process's list, concatenated in rank order."""
+    if dist_lib.world() == 1:
+        return items
+    import torch.distributed as dist
+
+    out = [None] * dist_lib.world()
+    dist.all_gather_object(out, items)
+    return [x for part in out for x in part]
 
 
 class DSECSemSegEvaluator:
@@ -188,12 +201,15 @@ class DSECSemSegEvaluator:
         for i, name in enumerate(self._class_names):
             res[f"ACC-{name}"] = 100 * acc[i]
 
-        if self._output_dir:
+        predictions = self._predictions
+        if self.save_predictions_json and sum_across_processes:
+            predictions = _gather_over_processes(predictions)
+        if self._output_dir and (not sum_across_processes or dist_lib.is_main()):  # one writer
             with open(os.path.join(self._output_dir, "sem_seg_evaluation.json"), "w") as f:
                 json.dump({k: (None if np.isnan(v) else v) for k, v in res.items()}, f)
             if self.save_predictions_json:
                 with open(os.path.join(self._output_dir, "sem_seg_predictions.json"), "w") as f:
-                    json.dump(self._predictions, f)
+                    json.dump(predictions, f)
 
         self._log_per_class_table(iou, acc)
         return OrderedDict({"sem_seg": res})

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist as dist_lib
+
 logger = logging.getLogger(__name__)
 
 SLIDE_WINDOWS = ((0, 512, 0, 512), (0, 512, 256, 768), (0, 512, 512, 1024))
@@ -90,7 +92,19 @@ def inference_on_dataset(model, loader, evaluator, slide_inference: bool = False
     host's work overlaps the card's (CUDA runs asynchronously; the copy to
     the host is the sync point).  Logs the data / compute split per group
     after ``warmup`` groups, like the reference's loop
-    (``evaluation/evaluator.py:56-132``)."""
+    (``evaluation/evaluator.py:56-132``).
+
+    Under a process group of R ranks, each rank runs over its contiguous
+    shard of the test set (the loader of ``build_d2_test_dataloader``, or a
+    ``TestLoader(dataset, rank, R)``; any other loader raises), so that
+    every sample is seen once, and the evaluator sums the confusion
+    matrices over the ranks: the metrics are those of one process over the
+    whole set.  Ranks run their passes independently (no collective until
+    the evaluator's)."""
+    if (getattr(loader, "shard_index", 0), getattr(loader, "num_shards", 1)) != (
+            dist_lib.rank(), dist_lib.world()):
+        raise ValueError(f"rank {dist_lib.rank()} of {dist_lib.world()} needs a test loader of its "
+                         "shard (build_d2_test_dataloader or TestLoader(dataset, rank, world))")
     group = max(1, batch)
     if slide_inference:
         eval_fn = make_slide_eval_fn(model, eval_with_noise=eval_with_noise, lora_name=lora_name)

@@ -8,16 +8,28 @@ do_test / eval-only).
     python -m madm_torch.main --config-file ... --eval-only --init-from model_RGB2Infrared.pth \\
         --sd-snapshot <HF SD-v1.4 snapshot dir>   # a released checkpoint of the reference
     python -m madm_torch.main --device cpu --config-file ... <dot-overrides>   # on the CPU
+    python -m madm_torch.main --config-file ... --num_chips 2      # two GPUs of this host
+    torchrun --nnodes 2 --nproc-per-node 8 ... -m madm_torch.main --config-file ... --distributed
 
 Differences from the JAX launcher:
 
 - ``--device`` (default ``cuda``) places the model, the optimizer and the
   batches; the CUDA default on a host without a GPU raises, nothing moves to
   the CPU by itself.
-- One process on one device: ``--num_chips`` above 1 and ``--distributed``
-  raise (ROADMAP §A2), as do the other flags whose branch the port has not
-  taken (``UNPORTED_FLAGS``, each with its ROADMAP section: the model
-  variants and attention-capture losses of §A3, ``--with_clip`` of §A4).
+- Data parallel (``madm_torch.parallel``): ``--num_chips N`` spawns N
+  processes, one a GPU of this host (``cuda:<rank>``, NCCL; with ``--device
+  cpu``, N CPU processes over gloo), as the reference's ``launch`` does;
+  ``--distributed`` joins the process group a launcher describes in the
+  environment (``torchrun``: ``MASTER_ADDR``, ``RANK``, ``WORLD_SIZE``,
+  ``LOCAL_RANK``), as ``jax.distributed.initialize()`` does.  The total
+  batch must divide by the world size: the JAX launcher shrinks its mesh to
+  the largest divisor, which a set of spawned processes cannot do, so the
+  run raises.  Each rank loads; rank 0 alone writes ``config.yaml``,
+  ``metrics.json``, the visualisations and the checkpoints.  Under
+  ``--num_chips`` the launcher returns None.
+- The flags whose branch the port has not taken raise
+  (``UNPORTED_FLAGS``, each with its ROADMAP section: the model variants
+  and attention-capture losses of §A3, ``--with_clip`` of §A4).
   The step's ablation flags (MIC, ``--FD``, ``--noise_reg``,
   ``--denoise_supervise``, the prompt ablations, ``--prompt_seq_len``,
   ``--remove_texture``, ``--remove_amp``, ``--merge_with_pl_data``, ...),
@@ -63,6 +75,7 @@ from .evaluation import inference_on_dataset
 from .models.clip_text import compute_uncond_inputs
 from .models.madm import init_random_
 from .models.prompt import resize_prompt
+from .parallel import dist as dist_lib
 from .train.train_step import (
     add_feature_distance_baseline,
     build_train_config,
@@ -86,7 +99,6 @@ UNPORTED_FLAGS = {
         "--baseline_wo_encoder_feat", "--single_scale_decoder", "--concat_pixel_shuffle",
         "--mask_diff"), "§A3"),
     "--with_clip": "§A4",
-    "--distributed": "§A2",
 }
 
 
@@ -187,8 +199,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm_latent_noise", action="store_true")
     p.add_argument("--ema_w_unet", action="store_true")
     p.add_argument("--warmup_lr", action="store_true")
-    p.add_argument("--num_chips", type=int, default=None, help="1 (one device)")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--num_chips", type=int, default=None,
+                   help="spawn this many data-parallel processes, one a GPU of this host")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group of the launcher's environment (torchrun)")
     p.add_argument("opts", nargs=argparse.REMAINDER, help="dot-path overrides: a.b.c=value")
     return p
 
@@ -201,8 +215,6 @@ def refuse_unported(args, parser: argparse.ArgumentParser) -> None:
         dest = by_flag[flag]
         if getattr(args, dest) != parser.get_default(dest):
             raise NotImplementedError(f"{flag} is not ported to madm_torch yet (ROADMAP {section})")
-    if args.num_chips is not None and args.num_chips > 1:
-        raise NotImplementedError("--num_chips > 1 is not ported to madm_torch yet (ROADMAP §A2)")
 
 
 def apply_cli_mutations(cfg, args):
@@ -368,7 +380,7 @@ def apply_step2_convention(cfg, args):
 
 
 def setup(args):
-    logging.basicConfig(level=logging.INFO,
+    logging.basicConfig(level=logging.INFO if dist_lib.is_main() else logging.WARNING,
                         format="%(asctime)s %(name)s %(levelname)s: %(message)s")
     from .utils.collect_env import collect_env_info
 
@@ -377,11 +389,18 @@ def setup(args):
     cfg = apply_cli_mutations(cfg, args)
     LazyConfig.apply_overrides(cfg, args.opts)
     apply_step2_convention(cfg, args)
+    world = dist_lib.world()
     if cfg.train.get("reference_world_size", 0):
-        cfg = auto_scale_workers(cfg, 1)  # one process on one device
+        cfg = auto_scale_workers(cfg, world)
+    total = cfg.dataloader.train.total_batch_size
+    if total % world:
+        raise ValueError(f"total batch {total} does not divide over {world} ranks: pick a world "
+                         f"size that divides it (the JAX launcher shrinks its mesh to the largest "
+                         f"divisor; spawned processes cannot shrink)")
     os.makedirs(cfg.train.output_dir, exist_ok=True)
-    with open(os.path.join(cfg.train.output_dir, "config.yaml"), "w") as f:
-        f.write(LazyConfig.to_py(cfg))
+    if dist_lib.is_main():
+        with open(os.path.join(cfg.train.output_dir, "config.yaml"), "w") as f:
+            f.write(LazyConfig.to_py(cfg))
     return cfg
 
 
@@ -411,7 +430,7 @@ def build_model_and_state(cfg, args):
     """(model, train state, TrainConfig): the model node instantiated as a
     trainable MADM on ``--device`` with seeded random weights
     (``cfg.train.seed``), the SD snapshot of ``--sd-snapshot`` over them,
-    and its AdamW state."""
+    and its optimizer state (sharded over the ranks of a process group)."""
     tc = build_train_config(cfg)
     node = ConfigDict(cfg.model)
     node.update(device=args.device, trainable=True)
@@ -476,7 +495,7 @@ def do_train(cfg, args):
     writers = WriterStack(writer_list, period=cfg.train.get("log_period", 50))
 
     # periodic training-vis grids (reference VisHook / mtmadise.py:551-653)
-    vis_period = cfg.train.get("vis_period", 0)
+    vis_period = cfg.train.get("vis_period", 0) if dist_lib.is_main() else 0
     if vis_period:
         from .train.vis import build_vis_data, make_vis_fn
         from .utils.visualization import save_vis_grid
@@ -524,11 +543,8 @@ def do_train(cfg, args):
     return state
 
 
-def main(argv=None):
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refuse_unported(args, parser)
-    resolve_device(args.device)
+def run(args):
+    """One process's run: eval-only or training."""
     cfg = setup(args)
     if args.eval_only:
         model, state, _ = build_model_and_state(cfg, args)
@@ -538,5 +554,40 @@ def main(argv=None):
     return do_train(cfg, args)
 
 
+def _rank_device(device: str, rank: int) -> str:
+    return f"cuda:{rank}" if torch.device(device).type == "cuda" else device
+
+
+def _spawned(argv) -> None:
+    """One of ``--num_chips`` N processes, in the process group already."""
+    args = build_parser().parse_args(argv)
+    args.device = _rank_device(args.device, dist_lib.rank())
+    run(args)
+
+
+def main(argv=None):
+    parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parser.parse_args(argv)
+    refuse_unported(args, parser)
+    resolve_device(args.device)
+    n = args.num_chips or 1
+    if args.distributed:
+        if n > 1:
+            raise ValueError("--num_chips spawns its own processes; with --distributed the "
+                             "launcher's WORLD_SIZE sets the world")
+        args.device = str(dist_lib.init_from_env(torch.device(args.device).type))
+        try:
+            return run(args)
+        finally:
+            dist_lib.destroy()
+    if n == 1:
+        return run(args)
+    if torch.device(args.device).type == "cuda" and torch.cuda.device_count() < n:
+        raise ValueError(f"--num_chips {n}: this host has {torch.cuda.device_count()} GPUs")
+    dist_lib.run_ranks(_spawned, n, [_rank_device(args.device, r) for r in range(n)], args=(argv,))
+    return None
+
+
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main()

@@ -7,7 +7,11 @@ sep-ASPP (dilations 1/6/12/18, BN + ReLU) -> 3x3 bottleneck -> Dropout2d ->
 ``fuse_layer.aspp_modules.<i>``, ``fuse_layer.bottleneck``, ``conv_seg``).
 Eval BN uses the running statistics.  Train BN (flax semantics) normalises
 by the batch statistics over N, H, W; with ``update_bn`` it folds them into
-the running statistics with momentum 0.9 and the biased variance.  Dropout2d
+the running statistics with momentum 0.9 and the biased variance.  Under a
+process group the batch is the global one, as under the
+JAX package's GSPMD step, whose means over a batch-sharded axis reduce
+across the data axis: the mean and E[y^2] are all-reduced sums over the
+global element count, with a gradient through the reduction.  Dropout2d
 takes its channel multiplier from the caller.  This module head is the plain
 path; ``ops.aspp``'s eval heads compute the same eval ids with kernels K2
 (``aspp_head_forward``), K7 (``argmax_head_forward``) or K6 and K7
@@ -21,6 +25,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import dist as dist_lib
 
 
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
@@ -53,14 +59,30 @@ DROPOUT_RATIO = 0.1  # Dropout2d before conv_seg, train only
 
 
 @torch.no_grad()
+def _fold_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+    bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+
+
+@torch.no_grad()
 def _update_running_stats(bn: nn.BatchNorm2d, y: torch.Tensor) -> None:
     """Fold y's batch mean and biased variance (fp32 accumulators over the
     compute-dtype tensor, E[y^2] - E[y]^2 as flax computes them) into the
     running statistics."""
     mean = torch.mean(y, dim=(0, 2, 3), dtype=torch.float32)
     var = (torch.mean(torch.square(y), dim=(0, 2, 3), dtype=torch.float32) - mean * mean).clamp_min(0.0)
-    bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-    bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    _fold_running_stats(bn, mean, var)
+
+
+def _global_batch_stats(y: torch.Tensor):
+    """fp32 mean and biased variance of y over N, H, W of the global batch:
+    the sums of y and y^2 all-reduced (with a gradient) over the global
+    element count (JAX ``_bn_stats`` under GSPMD)."""
+    sums = torch.stack([torch.sum(y, dim=(0, 2, 3), dtype=torch.float32),
+                        torch.sum(torch.square(y), dim=(0, 2, 3), dtype=torch.float32)])
+    moments = dist_lib.all_reduce_sum(sums) / (y.numel() // y.shape[1] * dist_lib.world())
+    mean = moments[0]
+    return mean, (moments[1] - mean * mean).clamp_min(0.0)
 
 
 class ConvModule(nn.Module):
@@ -78,6 +100,14 @@ class ConvModule(nn.Module):
         if not train:
             return F.relu(F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
                                        training=False, eps=bn.eps))
+        if dist_lib.initialized():
+            mean, var = _global_batch_stats(y)
+            if update_bn:
+                _fold_running_stats(bn, mean.detach(), var.detach())
+            # JAX _bn_apply_relu: scale and shift formed in fp32, applied in y's dtype
+            mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+            shift = bn.bias.float() - mean * mul
+            return F.relu(y * mul.to(y.dtype)[:, None, None] + shift.to(y.dtype)[:, None, None])
         if update_bn:
             _update_running_stats(bn, y)
         # batch statistics only: F.batch_norm would fold the unbiased variance

@@ -33,12 +33,22 @@ def draw_class_scores(generator: torch.Generator, batch: int, num_classes: int) 
     return torch.rand(batch, num_classes, generator=generator, device=generator.device)
 
 
-def class_masks(labels: torch.Tensor, scores: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """Per-sample masks [B, H, W] float: 1 where the pixel's class is among
-    the ceil(n/2) present classes with the highest scores; 0 at ignored pixels."""
-    b = labels.shape[0]
+def present_classes(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """[C] bool: the classes present anywhere in the batch (the JAX
+    package's batch-wide presence, a reference quirk)."""
     classes = torch.arange(num_classes, device=labels.device)
-    present = (labels.reshape(b, -1, 1) == classes).any(dim=1).any(dim=0)  # [C]
+    return (labels.reshape(labels.shape[0], -1, 1) == classes).any(dim=1).any(dim=0)
+
+
+def class_masks(labels: torch.Tensor, scores: torch.Tensor, num_classes: int,
+                present: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample masks [B, H, W] float: 1 where the pixel's class is among
+    the ceil(n/2) present classes with the highest scores; 0 at ignored
+    pixels.  ``present`` ([C] bool, by default ``present_classes(labels)``)
+    is the batch's: a rank of a data-parallel step passes the global one."""
+    b = labels.shape[0]
+    if present is None:
+        present = present_classes(labels, num_classes)  # [C]
     n_present = int(present.sum())
     n_take = (n_present + n_present % 2) // 2
     s = torch.where(present, scores.to(labels.device), torch.tensor(-math.inf, device=labels.device))

@@ -8,6 +8,11 @@ per-step metrics.  The state lives on the card unless the caller passes
 ``synthetic_batches`` makes seeded stand-in batches (images uniform in
 [0, 1], labels of a few class blobs with some ignored pixels) for running
 without a dataset, with the extra images an ablation reads on request.
+
+Under a process group (``madm_torch.parallel``), every
+rank builds the same state from the same seed, ``train`` takes global
+batches and steps each rank on its rows, and the generator must be seeded
+alike on every rank (``sample_draws`` draws for the global batch).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.madm import MADM, MADMConfig, init_random_
+from ..parallel import dist as dist_lib
 from .train_step import (
     TrainConfig,
     TrainState,
@@ -78,11 +84,16 @@ def train(state: TrainState, batches: Iterable[Dict[str, torch.Tensor]], steps: 
     """Take ``steps`` UDA steps on ``state`` (in place) with batches from
     ``batches`` and random draws from ``generator``; returns the per-step
     metrics.  Each step's metrics gain ``step_ms``, host time to the step's
-    end (its metrics are read from the device)."""
+    end (its metrics are read from the device).  Under a process group of
+    any size, each batch is the global one and this rank steps on its
+    rows (``local_rows``)."""
     it = iter(batches)
     history = []
     for _ in range(steps):
         batch = next(it)
+        if dist_lib.initialized():
+            rows = dist_lib.local_rows(next(iter(batch.values())).shape[0])
+            batch = {k: v[rows] for k, v in batch.items()}
         t0 = time.perf_counter()
         metrics = train_step(state, batch, generator)
         metrics["step_ms"] = (time.perf_counter() - t0) * 1e3

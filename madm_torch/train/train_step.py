@@ -36,8 +36,24 @@ Order, as in the JAX step:
    target against the noise-reg pseudo-label's palette latent);
 8. the head's BN statistics chain source -> mixed -> MIC in place; the
    teacher's come from its own pass;
-9. global-norm clip, AdamW at the scheduled learning rate (``unet_lr``
-   scales the UNet's and the adapters' groups), step + 1.
+9. under a process group, the trained gradients averaged
+   over the ranks (once, after the last backward); global-norm clip, the
+   optimizer (AdamW, or with ``optimizer='adafactor'`` Adafactor) at the
+   scheduled learning rate (``unet_lr`` scales the UNet's and the adapters'
+   updates), step + 1.
+
+Data parallel (``madm_torch.parallel``): each rank steps on its rows of the
+global batch, and the step is the single-process step on the global batch,
+as the JAX package's GSPMD step is: ``sample_draws`` draws for the global
+batch on every rank from the same generator and keeps this rank's rows of
+the per-sample draws; the head's train-mode BatchNorm takes global
+statistics; the batch means that weigh losses ('batch' pseudo-weight,
+``prompt_confidence``'s agreement, the decoder losses' ``pv``) and the
+returned metrics are means over the ranks; the optimizer state is sharded
+(ZeRO-1) and the parameters stay bit-identical across ranks.  The losses'
+denominators are pixel counts fixed by the shapes, equal on every rank
+(``criterion.label_smooth_cross_entropy`` divides by a count of valid
+pixels, but no step uses it).
 
 With LoRA adapters (``MADMConfig.lora_configs``), the source pass takes
 the ``default`` adapter and the teacher and target passes the target
@@ -65,6 +81,7 @@ from ..models import prompt as prompt_lib
 from ..models.daformer import DROPOUT_RATIO, argmax_classes
 from ..models.madm import MADM, MADMConfig, trainable_parameters
 from ..ops import dacs, palette
+from ..parallel import dist as dist_lib
 from . import criterion
 from .ema import ema_alpha, update_ema
 from .optimizer import clip_by_global_norm_, get_lr_schedule, make_optimizer, set_lr
@@ -125,6 +142,11 @@ class TrainConfig:
     grad_clip: float = 0.01
     unet_lr: Optional[float] = None  # the UNet's and the adapters' lr (None: lr)
     schedule: str = "multistep"  # or 'linear' (--warmup_lr)
+    optimizer: str = "adamw"  # or 'adafactor' (the JAX package's single-chip memory reducer)
+    b1: Optional[float] = 0.9  # None (optimizer.no_momentum, adafactor only): no first moment
+    b2: float = 0.999  # adamw's
+    eps: float = 1e-8  # adamw's
+    mu_dtype: Optional[str] = None  # first-moment storage: 'bfloat16' (adafactor's default) or fp32
 
     def __post_init__(self):
         for name, off in _UNPORTED.items():
@@ -135,6 +157,13 @@ class TrainConfig:
             raise ValueError(f"vae_decoder_loss {self.vae_decoder_loss!r}")
         if self.vae_decoder_loss_type not in ("L1", "L2"):
             raise ValueError(f"vae_decoder_loss_type {self.vae_decoder_loss_type!r}")
+        if self.optimizer not in ("adamw", "adafactor"):
+            raise ValueError(f"optimizer {self.optimizer!r} is not 'adamw' or 'adafactor'")
+        if self.b1 is None and self.optimizer != "adafactor":
+            raise ValueError("optimizer.no_momentum (b1=None) only applies to name='adafactor'; "
+                             f"adamw requires a first-moment beta (got name={self.optimizer!r})")
+        if self.mu_dtype not in (None, "bfloat16", "float32"):
+            raise ValueError(f"mu_dtype {self.mu_dtype!r}")
         if self.pseudo_weight_scope not in ("sample", "batch"):
             raise ValueError(f"pseudo_weight_scope {self.pseudo_weight_scope!r}")
         if self.merge_with_pl_data not in (None,) + PL_MERGE_MODES:
@@ -150,7 +179,7 @@ class TrainConfig:
 class TrainState:
     model: MADM
     tc: TrainConfig
-    optimizer: torch.optim.AdamW
+    optimizer: torch.optim.Optimizer
     params: Sequence[torch.nn.Parameter]  # what the optimizer updates
     schedule: Any  # update count -> learning rate
     step: int = 0
@@ -174,21 +203,18 @@ _KNOB_DEFAULTS: Dict[str, Any] = {
     "prompt_confidence": None, "rand_prompt_scale": 0.5, "denoise_interval": 0,
     "merge_with_pl_data": None, "pl_merge_val": 0.5,
 }
-# optimizer-node values the port takes (the reference's AdamW); others raise
-# (the JAX package's single-chip memory reducers, ROADMAP §A)
-_OPTIMIZER_PORTED: Dict[str, Any] = {
-    "name": ("adamw",), "schedule": ("multistep", "linear"), "betas": ((0.9, 0.999),),
-    "eps": (1e-8,), "weight_decay_norm": (0.0,), "weight_decay_bias": (0.0,),
-    "no_momentum": (None,), "mu_dtype": (None,),
-}
+# optimizer-node values the port takes; others raise.  The JAX package reads
+# neither: its wd mask fixes the norms' and biases' decay at 0
+_OPTIMIZER_PORTED: Dict[str, Any] = {"weight_decay_norm": (0.0,), "weight_decay_bias": (0.0,)}
 
 
 def build_train_config(cfg) -> TrainConfig:
     """TrainConfig from a loaded LazyConfig tree (the JAX package's
     ``build_train_config``): the UDA knobs from the model node, where an
     optional ``cfg.uda`` namespace overrides them; ``max_iter`` and the clip
-    from ``cfg.train``; lr, weight decay, ``unet_lr`` and the schedule from
-    ``cfg.optimizer``, whose other settings must be the reference AdamW's."""
+    from ``cfg.train``; the rule (``name``), lr, weight decay, betas (b1 None
+    with ``no_momentum``), eps, ``mu_dtype``, ``unet_lr`` and the schedule
+    from ``cfg.optimizer``, as JAX ``main.py:458-473`` passes them."""
     uda = dict(cfg.get("uda", {}) or {})
     model = cfg.model
 
@@ -205,7 +231,8 @@ def build_train_config(cfg) -> TrainConfig:
         value = opt.get(name, ported[0])
         if (tuple(value) if isinstance(value, list) else value) not in ported:
             raise NotImplementedError(f"optimizer.{name}={value!r} is not ported to madm_torch yet "
-                                      f"(it takes {' or '.join(map(repr, ported))}; ROADMAP §A)")
+                                      f"(it takes {' or '.join(map(repr, ported))})")
+    betas = tuple(opt.get("betas", (0.9, 0.999)))
     return TrainConfig(
         max_iter=cfg.train.max_iter,
         ema_alpha=knob("ema_alpha"),
@@ -249,17 +276,24 @@ def build_train_config(cfg) -> TrainConfig:
         grad_clip=cfg.train.get("grad_clip") or 0.01,
         unet_lr=opt.get("unet_lr"),
         schedule=opt.get("schedule", "multistep"),
+        optimizer=opt.get("name", "adamw"),
+        b1=None if opt.get("no_momentum") else float(betas[0]),
+        b2=float(betas[1]),
+        eps=float(opt.get("eps", 1e-8)),
+        mu_dtype=opt.get("mu_dtype"),
     )
 
 
 def make_train_state(model: MADM, tc: TrainConfig) -> TrainState:
-    """The optimizer state of ``model``; with ``tc.fd`` the caller adds the
+    """The optimizer state of ``model`` (sharded over the ranks under a
+    process group); with ``tc.fd`` the caller adds the
     baseline (``add_feature_distance_baseline``) once the weights it starts
     from are loaded."""
     named = trainable_parameters(model)
     return TrainState(model=model, tc=tc,
                       optimizer=make_optimizer(model, named, tc.lr, tc.weight_decay,
-                                               unet_lr=tc.unet_lr),
+                                               betas=(tc.b1, tc.b2), eps=tc.eps, unet_lr=tc.unet_lr,
+                                               name=tc.optimizer, mu_dtype=tc.mu_dtype),
                       params=[p for _, p in named],
                       schedule=get_lr_schedule(tc.lr, tc.max_iter, tc.schedule))
 
@@ -298,18 +332,26 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
     (and the model config ``cfg``) turn on: the MIC slot's head dropout, the
     MIC strong transform and block-mask scores, the denoise and noise-reg
     timesteps, the noise-reg strong transform, the mixed pass's latent
-    noise, the prompt ablations' values and the random_choice uniform."""
+    noise, the prompt ablations' values and the random_choice uniform.
+
+    Under a process group, ``labels`` are this rank's rows:
+    every rank draws for the global batch from the same generator and keeps
+    its rows of the per-sample draws (per-step draws, such as the teacher's
+    timestep, are the whole draw); the DACS mask's present classes are the
+    global batch's."""
     b, h, w = labels.shape
+    rows = dist_lib.local_rows(b * dist_lib.world())
+    b *= dist_lib.world()
     dev = generator.device
-    scores = dacs.draw_class_scores(generator, b, num_classes)
+    scores = dacs.draw_class_scores(generator, b, num_classes)[rows]
     lo, hi = tc.denoise_timestep_range
 
     def dropout(n):
-        keep = torch.rand(n, b, head.channels, generator=generator, device=dev) >= DROPOUT_RATIO
+        keep = torch.rand(n, b, head.channels, generator=generator, device=dev)[:, rows] >= DROPOUT_RATIO
         return list(keep.float() / (1.0 - DROPOUT_RATIO))
 
     def timesteps():
-        return torch.randint(lo, hi + 1, (b,), generator=generator, device=dev)
+        return torch.randint(lo, hi + 1, (b,), generator=generator, device=dev)[rows]
 
     keep = dropout(3)  # drawn before the jitter, blur and timestep, the shipped order
 
@@ -318,7 +360,8 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
                 dacs.draw_gaussian_blur(generator) if tc.blur else None)
 
     draws: Dict[str, Any] = {
-        "mix_mask": dacs.class_masks(labels, scores, num_classes),
+        "mix_mask": dacs.class_masks(labels, scores, num_classes,
+                                     dist_lib.any_over_ranks(dacs.present_classes(labels, num_classes))),
         "jitter": dacs.draw_color_jitter(generator, tc.color_jitter_strength,
                                          tc.color_jitter_probability),
         "blur": dacs.draw_gaussian_blur(generator) if tc.blur else None,
@@ -330,7 +373,7 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
     if tc.mic or tc.mic_reg or tc.remove_texture:
         draws["mic_jitter"], draws["mic_blur"] = strong()
     if tc.mic or tc.mic_reg:
-        draws["mic_mask"] = dacs.draw_block_mask(generator, b, h, w)
+        draws["mic_mask"] = dacs.draw_block_mask(generator, b, h, w)[rows]
     if tc.denoise_supervise:
         draws["t_ds"] = timesteps()
     if tc.noise_reg:
@@ -338,7 +381,7 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
         draws["t_nr"] = timesteps()
     seq_len = (cfg.prompt_seq_len if cfg is not None else None) or prompt_lib.PROMPT_SEQ_LEN
     if cfg is not None and cfg.add_latent_noise != -1.0:
-        draws["latent_noise"] = torch.randn(b, 4, h // 8, w // 8, generator=generator, device=dev)
+        draws["latent_noise"] = torch.randn(b, 4, h // 8, w // 8, generator=generator, device=dev)[rows]
     if tc.mask_prompt_ratio:
         draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "masked_prompt", seq_len)
     elif tc.prompt_perturbation:
@@ -447,11 +490,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         pseudo_label = argmax_classes(ema_sm)
         pseudo_val = (pseudo_prob >= tc.pseudo_threshold).float().mean(dim=(1, 2))
         if tc.pseudo_weight_scope == "batch":
-            pseudo_weight = pseudo_val.mean().expand_as(pseudo_prob)
+            pseudo_weight = dist_lib.all_reduce_mean(pseudo_val.mean()).expand_as(pseudo_prob)
         else:
             pseudo_weight = pseudo_val[:, None, None].expand_as(pseudo_prob)
         if tc.prompt_confidence is not None:
-            pseudo_weight = pseudo_weight * (pseudo_label == rp_label).float().mean()
+            pseudo_weight = pseudo_weight * dist_lib.all_reduce_mean((pseudo_label == rp_label).float().mean())
         if tc.pl_crop:
             pseudo_weight = pseudo_weight.clone()
             pseudo_weight[:, : tc.psweight_ignore_top, :] = 0.0
@@ -475,7 +518,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             tgt_mask = tgt_valid * pseudo_weight[..., None]
         if tc.mic_reg or tc.denoise_supervise:
             pl_color_lat = _encode_palette(model, pseudo_label, table)[0]
-            pv = pseudo_val.mean()
+            pv = dist_lib.all_reduce_mean(pseudo_val.mean())
         if tc.noise_reg:
             nr_color_lat = _encode_palette(model, nr_label, table)[0]
 
@@ -573,7 +616,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             out["before_vae_decoder"], nr_color_lat, 1.0, tc.vae_decoder_loss_type, tc.noise_reg)})
         del out
 
-    # 9. clip, AdamW, step + 1
+    # 9. gradients averaged over the ranks, clip, the optimizer, step + 1
+    dist_lib.all_reduce_mean_([p.grad for p in state.params if p.grad is not None])
     grad_norm = clip_by_global_norm_(state.params, tc.grad_clip)
     set_lr(state.optimizer, state.schedule(step))
     state.optimizer.step()
@@ -582,4 +626,4 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     names = list(losses) + ["total_loss", "pseudo_val", "reg_prob_mean", "grad_norm"]
     values = [v.detach().float() for v in losses.values()]
     values += [sum(values), pseudo_val.mean(), reg_prob.mean(), grad_norm.float()]
-    return dict(zip(names, torch.stack(values).tolist()))
+    return dict(zip(names, dist_lib.all_reduce_mean(torch.stack(values)).tolist()))

@@ -1,6 +1,6 @@
 """Environment report at startup (port of ``madm_tpu/utils/collect_env.py``;
 reference ``utils/collect_env.py:63+``): torch, CUDA and the card in place
-of jax, flax and optax."""
+of jax, flax and optax, and this process's rank in its process group."""
 
 from __future__ import annotations
 
@@ -28,5 +28,8 @@ def collect_env_info() -> str:
     if torch.cuda.is_available():
         add("devices", ", ".join(torch.cuda.get_device_name(i) for i in range(torch.cuda.device_count())))
         add("card (name, power limit)", card_line())
+    from ..parallel import dist as dist_lib
+
+    add("rank / world size", f"{dist_lib.rank()} / {dist_lib.world()}")
     add("hostname", platform.node())
     return "\n".join(rows)

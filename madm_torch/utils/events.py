@@ -4,7 +4,9 @@
 ``EventStorage`` accumulates smoothed scalars; writers flush them:
 ``JSONWriter`` (metrics.json lines), ``CommonMetricPrinter`` (log lines with
 ETA and losses — ``utils/events.py:96-165``), and an optional wandb writer
-gated on the package being importable.
+gated on the package being importable.  Under a process group of more than
+one, the writers write on rank 0 alone (every rank's metrics are the same
+means over the ranks).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
+
+from ..parallel import dist as dist_lib
 
 logger = logging.getLogger(__name__)
 
@@ -55,17 +59,22 @@ class JSONWriter:
     """metrics.json with one JSON line per flush (d2 format)."""
 
     def __init__(self, path: str):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._f = open(path, "a")
+        self._f = None
+        if dist_lib.is_main():
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a")
 
     def write(self, storage: EventStorage) -> None:
+        if self._f is None:
+            return
         row = {"iteration": storage.iter}
         row.update({k: v for k, (v, _) in storage.latest().items()})
         self._f.write(json.dumps(row, sort_keys=True) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class CommonMetricPrinter:
@@ -106,7 +115,7 @@ class WandbWriter:
                  enabled: bool = True, resume: bool = False,
                  output_dir: Optional[str] = None, **kwargs):
         self._run = None
-        if not enabled:
+        if not (enabled and dist_lib.is_main()):
             return
         try:
             import wandb

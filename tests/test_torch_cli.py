@@ -33,6 +33,7 @@ from madm_torch.data import TestLoader as PortTestLoader
 from madm_torch.evaluation.evaluator import DSECSemSegEvaluator
 from madm_torch.main import main
 from madm_torch.models.madm import MADMConfig
+from madm_torch.parallel import dist as dist_lib
 from madm_torch.train.loop import init_train_state, synthetic_batches, train
 from madm_torch.train.train_step import TrainConfig, build_train_config
 from torch_port_toy import TOY, jax_variables, sure_pixels
@@ -149,19 +150,26 @@ def test_built_model_and_train_config_equal_jax(name, data_root):
         assert getattr(model.cfg, f.name) == getattr(jmodel.cfg, f.name), f.name
     assert str(model.cfg.compute_dtype).split(".")[-1] == jmodel.cfg.compute_dtype.__name__
     tc, jtc = build_train_config(port), jax_build_train_config(ref, jmodel.cfg)
+    optimizer_fields = ("optimizer", "b1", "b2", "eps", "mu_dtype")  # make_optimizer's, not JAX TrainConfig's
     for f in dataclasses.fields(TrainConfig):
-        if f.name in ("train_palette", "lr", "weight_decay", "grad_clip", "unet_lr", "schedule"):
+        if f.name in ("train_palette", "lr", "weight_decay", "grad_clip", "unet_lr", "schedule",
+                      *optimizer_fields):
             continue
         assert getattr(tc, f.name) == getattr(jtc, f.name), f.name
     assert tc.train_palette == tuple(ref.dataloader.evaluator[0].palette) == tuple(jmodel.cfg.train_palette)
     assert (tc.lr, tc.weight_decay, tc.grad_clip) == (5e-6, 0.05, 0.01)
+    # as JAX main.py:458-473 hands the optimizer node to make_optimizer
+    opt = ref.optimizer
+    assert (tc.optimizer, tc.b1, tc.b2, tc.eps, tc.mu_dtype) == (
+        opt.get("name", "adamw"), None if opt.get("no_momentum") else opt.get("betas", (0.9, 0.999))[0],
+        opt.get("betas", (0.9, 0.999))[1], opt.get("eps", 1e-8), opt.get("mu_dtype"))
 
 
 def test_unported_config_values_raise(data_root):
     port = LazyConfig.load(_config("port", "depth_11"))
     for ov, what in ((["model.input_channel_plus=1"], "input_channel_plus"),
                      (["model.fd_attention=1.0"], "fd_attention"),
-                     (["optimizer.name='adafactor'"], "optimizer.name")):
+                     (["model.head_fusion='isa'"], "head_fusion")):
         cfg = LazyConfig.apply_overrides(LazyConfig.load(_config("port", "depth_11")), ov + overrides(data_root))
         with pytest.raises(NotImplementedError, match=what):
             instantiate(dict(cfg.model, device="cpu"))
@@ -381,7 +389,7 @@ def test_cli_eval_only_reproduces_the_training_eval(cli_run, data_root, tmp_path
                                                          if k.startswith("eval/")}
 
 
-@pytest.mark.parametrize("flag", [["--FD_attention", "1.0"], ["--num_chips", "2"], ["--distributed"],
+@pytest.mark.parametrize("flag", [["--FD_attention", "1.0"], ["--concat_pixel_shuffle"], ["--mask_diff", "x"],
                                   ["--with_clip", "learnable_clip"], ["--slide_training"],
                                   ["--multi_layer_prompt"], ["--target_attention_loss"]])
 def test_cli_refuses_unported_flags(flag, data_root, tmp_path):
@@ -390,6 +398,63 @@ def test_cli_refuses_unported_flags(flag, data_root, tmp_path):
     argv[ins:ins] = flag
     with pytest.raises(NotImplementedError, match=flag[0]):
         main(argv)
+
+
+def test_cli_num_chips_2_on_cpu(data_root, tmp_path):
+    """``--num_chips 2 --device cpu``: two gloo ranks take two iterations at
+    --bs 2 (one row each) and evaluate; rank 0 alone writes one
+    metrics.json (each iteration once), the vis grid and the checkpoints,
+    whose optimizer state is whole; ``--eval-only`` from the best one in a
+    single process gives the run's eval metrics."""
+    argv = cli_argv(data_root, tmp_path / "w2")
+    argv[argv.index("--bs") + 1] = "2"
+    argv[argv.index("--num_chips") + 1] = "2"
+    assert main(argv) is None
+    run_dir = tmp_path / "w2"
+    files = {str(p.relative_to(run_dir)) for p in run_dir.rglob("*")}
+    assert {"config.yaml", "metrics.json", "model_0000001.pth", "model_best.pth",
+            "vis_results/000002_rank0.png", "000002/sem_seg_evaluation.json"} <= files, sorted(files)
+    assert not any("rank1" in f for f in files)
+    rows = [json.loads(line) for line in (run_dir / "metrics.json").read_text().splitlines()]
+    assert [r["iteration"] for r in rows] == [0, 1, 2] and all(np.isfinite(r["total_loss"]) for r in rows)
+    opt = torch.load(run_dir / "model_0000001.pth", weights_only=True)["optimizer"]
+    assert len(opt["state"]) == sum(len(g["params"]) for g in opt["param_groups"]) > 100
+    assert all(st["step"] == 2 for st in opt["state"].values())
+    ins = argv.index("--output")
+    argv2 = argv[:ins] + ["--output", str(tmp_path / "eval"), "--eval-only", "--init-from",
+                          str(run_dir / "model_best.pth")] + argv[ins + 2:]
+    argv2[argv2.index("--num_chips") + 1] = "1"
+    again = main(argv2)
+    assert {k: float(v) for k, v in again.items()} == {k[5:]: v for k, v in rows[-1].items()
+                                                       if k.startswith("eval/")}
+
+
+def test_cli_distributed_world_size_1_on_cpu(data_root, tmp_path, monkeypatch):
+    """``--distributed`` with a launcher's environment of one rank (gloo on
+    the CPU): the collective paths run (ZeRO-1 state, the gradient
+    all-reduce, the global BN statistics), the checkpoint holds the whole
+    state, the group is left at the end, and ``--eval-only`` from the best
+    checkpoint without a group gives the run's eval metrics."""
+    import torch.distributed as dist
+
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(dist_lib.free_port()), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    argv = cli_argv(data_root, tmp_path / "run")
+    state = main(["--distributed"] + argv)
+    assert type(state.optimizer).__name__ == "ZeroRedundancyOptimizer" and state.step == 2
+    assert not dist.is_initialized()
+    opt = torch.load(tmp_path / "run" / "model_best.pth", weights_only=True)["optimizer"]
+    assert len(opt["state"]) == sum(len(g["params"]) for g in opt["param_groups"])
+    rows = [json.loads(line) for line in (tmp_path / "run" / "metrics.json").read_text().splitlines()]
+    ins = argv.index("--output")
+    again = main(argv[:ins] + ["--output", str(tmp_path / "eval"), "--eval-only", "--init-from",
+                               str(tmp_path / "run" / "model_best.pth")] + argv[ins + 2:])
+    assert {k: float(v) for k, v in again.items()} == {k[5:]: v for k, v in rows[-1].items()
+                                                       if k.startswith("eval/")}
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(RuntimeError, match="WORLD_SIZE"):
+        main(["--distributed"] + argv)
 
 
 def test_cli_default_device_needs_a_gpu(data_root, tmp_path):
