@@ -103,6 +103,19 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    card are not a scaling figure); (c) the CLI with --distributed at
    WORLD_SIZE=1 on NCCL (phase 9's run), then --eval-only --init-from its
    best checkpoint in one process, which must give the same metrics.
+13. the model variants of ROADMAP §A3: (a) the 'attention' group (capture
+   at res 16/32 'up', the concat slot, fd_attention, target_attention_loss)
+   and the 'structure' group (the second head, mask_diff, the pixel-unshuffle
+   tower, per-layer prompts, the ISA fuse layer, final_fuse): one toy fp32
+   step of each, CUDA against CPU at phase 6's tolerances; (b) each at full
+   width in bf16, B=1 ('structure' also at B=2), then ISA alone at B=1 and
+   B=2: K1/K3 launches equal to ``variant_launches``, every trained tensor's
+   gradient finite and nonzero, the branch losses nonzero, ms and peak
+   memory; each group's model round-trips its checkpoints; (c) full-width
+   eval passes at B=1 and B=2 of 'isa', 'conv', 'sep_conv', final_fuse and
+   the concat slot ('none'), and of the second head in 'aspp' and 'full':
+   ids, launches, ms/crop; (d) a captured cross-attention layer against K1
+   at Sq 1024 and 256; (e) a slide_training step at [1, 512, 1024, 3].
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -114,6 +127,7 @@ import gc
 import copy
 import ctypes
 import hashlib
+import io
 import json
 import math
 import os
@@ -126,7 +140,13 @@ import torch
 import torch.nn.functional as F
 
 from madm_torch import kernels
-from madm_torch.checkpoint import Checkpointer, reference_state_dict, save_sd_snapshot
+from madm_torch.checkpoint import (
+    Checkpointer,
+    convert_madm_pth,
+    merge_into_model,
+    reference_state_dict,
+    save_sd_snapshot,
+)
 from madm_torch.device import card_line
 from madm_torch.evaluation import DSECSemSegEvaluator, inference_on_dataset, make_slide_eval_fn
 from madm_torch.models.clip_text import CLIPTextTransformer, compute_uncond_inputs
@@ -1669,10 +1689,11 @@ def ablation_model(cfg, device, gen):
 
 
 def ablation_state(model, tc, gen):
-    """The train state; under ``fd`` the baseline, then the student's UNet
-    moved 1% off it (so that the distance and its gradient are not 0)."""
+    """The train state; under ``fd`` or ``fd_attention`` the baseline, then
+    the student's UNet moved 1% off it (so that the distance and its
+    gradient are not 0)."""
     state = make_train_state(model, tc)
-    if tc.fd:
+    if tc.fd or tc.fd_attention:
         add_feature_distance_baseline(state)
         with torch.no_grad():
             for p in model.unet.parameters():
@@ -1686,15 +1707,24 @@ def check_ablation_toy():
     batch and draws: losses and grad_norm to 1e-4 relative, gradients (Adam's
     first moment) to 2e-3 of the largest entry (phase 6's tolerances), and
     the CUDA step's launches equal to the derived counts."""
-    for name, (model_kw, tc_kw) in ABLATION_GROUPS.items():
+    check_toy_groups("11", ABLATION_GROUPS, ABLATION_LOSSES, lambda cfg, tc: derived_launches(tc),
+                     ablation_model)
+
+
+def check_toy_groups(phase, groups, branch_losses, launches_of, model_of):
+    """One toy fp32 step of each group (MADMConfig fields, TrainConfig
+    fields) on ``model_of(cfg, device, generator)``'s weights, CUDA against
+    CPU (``check_ablation_toy``'s checks); the CUDA step's launches equal to
+    ``launches_of(cfg, tc)``."""
+    for name, (model_kw, tc_kw) in groups.items():
         cfg = dataclasses.replace(TOY, **model_kw)
         tc = TrainConfig(**tc_kw)
-        cpu = ablation_model(cfg, "cpu", torch.Generator().manual_seed(SEED))
+        cpu = model_of(cfg, "cpu", torch.Generator().manual_seed(SEED))
         gpu = MADM(cfg, device="cuda", trainable=True)
         gpu.load_state_dict(cpu.state_dict())
         s_cpu = ablation_state(cpu, tc, torch.Generator().manual_seed(SEED + 1))
         s_gpu = make_train_state(gpu, tc)
-        if tc.fd:  # the baseline is the unperturbed start: the CPU's, copied
+        if tc.fd or tc.fd_attention:  # the baseline is the unperturbed start: the CPU's, copied
             add_feature_distance_baseline(s_gpu)
             for k, m in s_cpu.consts.items():
                 s_gpu.consts[k].load_state_dict(m.state_dict())
@@ -1706,22 +1736,22 @@ def check_ablation_toy():
         reset_counts()
         m_gpu = train_step(s_gpu, batch, draws=draws)
         launches = launch_counts()
-        expected = derived_launches(tc)
+        expected = launches_of(cfg, tc)
         worst = max(abs(m_gpu[k] - v) / max(abs(v), 1e-3) for k, v in m_cpu.items())
         named_cpu, named_gpu = dict(cpu.named_parameters()), dict(gpu.named_parameters())
         mom = [(s_gpu.optimizer.state[named_gpu[n]]["exp_avg"].cpu(), s_cpu.optimizer.state[p]["exp_avg"])
                for n, p in named_cpu.items() if p.requires_grad]
         mmax = max(c.abs().max().item() for _, c in mom)
         grad_err = max((g - c).abs().max().item() for g, c in mom) / mmax
-        live = [k for k in ABLATION_LOSSES[name] if m_cpu[k] != 0.0]  # 0 where pseudo_val is 0
-        log(f"phase 11 toy '{name}' step (fp32): CUDA vs CPU losses/grad_norm max rel err {worst:.3e} "
+        live = [k for k in branch_losses[name] if m_cpu[k] != 0.0]  # 0 where pseudo_val is 0
+        log(f"phase {phase} toy '{name}' step (fp32): CUDA vs CPU losses/grad_norm max rel err {worst:.3e} "
             f"(tol 1e-4); gradients (Adam first moment) max err {grad_err:.3e} of the largest (tol 2e-3); "
             f"{len(mom)} trained tensors; branch losses nonzero {live}; CUDA launches {launches} "
             f"(derived {expected}); " + " ".join(f"{k}={v:.5f}" for k, v in m_gpu.items()))
         if not (worst <= 1e-4 and grad_err <= 2e-3):
-            raise AssertionError(f"phase 11 toy '{name}': CUDA disagrees with the CPU twins")
+            raise AssertionError(f"phase {phase} toy '{name}': CUDA disagrees with the CPU twins")
         if launches != expected:
-            raise AssertionError(f"phase 11 toy '{name}' launched {launches}; derived {expected}")
+            raise AssertionError(f"phase {phase} toy '{name}' launched {launches}; derived {expected}")
 
 
 def live_warm_up(state, batches, gen):
@@ -1746,47 +1776,56 @@ def run_ablation_full(card):
     equal the derived counts; every trained tensor's gradient finite and
     nonzero (alpha_uncond_prompt exempt while uncond_inputs is zeros), the
     branch losses finite and nonzero."""
-    rows = {}
-    for name, (model_kw, tc_kw) in ABLATION_GROUPS.items():
-        t0 = time.perf_counter()
-        cfg, tc = MADMConfig(**model_kw), TrainConfig(**tc_kw)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-        state = ablation_state(ablation_model(cfg, "cuda", gen), tc, gen)
-        batches = synthetic_batches(1, cfg.crop_size, cfg.num_classes, gen, extra=ABLATION_EXTRA)
-        warm = live_warm_up(state, batches, gen)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = train(state, batches, steps=1, generator=gen)[0]
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end)
-        launches = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        expected = derived_launches(tc)
-        named = trainable_parameters(state.model)
-        exempt = () if state.model.uncond_inputs.any() else ("alpha_uncond_prompt",)
-        faults = [n for n, p in named if p.grad is None or not torch.isfinite(p.grad).all()
-                  or not (p.grad.any() or n.endswith(exempt))]
-        dead = [k for k in ABLATION_LOSSES[name] if not (math.isfinite(m[k]) and m[k] != 0.0)]
-        rows[name] = dict(ms=ms, peak_gib=peak, launches=launches, derived=expected)
-        log(f"phase 11 full-width '{name}' B=1 step {state.step}: {ms:.1f} ms, peak memory {peak:.2f} GiB; "
-            f"launches {launches} (derived {expected}); {len(named) - len(faults)} of {len(named)} "
-            f"trained tensors with a finite nonzero gradient (exempt {exempt}); warm-up "
-            f"pseudo_val={warm['pseudo_val']:.5f}; " + " ".join(
-                f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms")
-            + f"; {time.perf_counter() - t0:.1f} s [{card}]")
-        if launches != expected:
-            raise AssertionError(f"phase 11 '{name}' launched {launches}; derived {expected}")
-        if faults or dead or not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"phase 11 '{name}': gradients {faults[:10]}, losses {dead}: {m}")
-        del state, batches, named
-        gc.collect()
-        torch.cuda.empty_cache()
-    return rows
+    return {name: run_group_full("11", name, *ABLATION_GROUPS[name], ABLATION_LOSSES[name],
+                                 lambda cfg, tc: derived_launches(tc), card)
+            for name in ABLATION_GROUPS}
 
+
+def run_group_full(phase, name, model_kw, tc_kw, branch_losses, launches_of, card, batch=1,
+                   keep=None):
+    """One group at full width in bf16 (``run_ablation_full``'s checks) at
+    ``batch``; ``keep(state)`` sees the stepped state before it is freed.
+    Returns the step's row."""
+    t0 = time.perf_counter()
+    cfg, tc = MADMConfig(**model_kw), TrainConfig(**tc_kw)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    state = ablation_state(ablation_model(cfg, "cuda", gen), tc, gen)
+    batches = synthetic_batches(batch, cfg.crop_size, cfg.num_classes, gen, extra=ABLATION_EXTRA)
+    warm = live_warm_up(state, batches, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    m = train(state, batches, steps=1, generator=gen)[0]
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expected = launches_of(cfg, tc)
+    named = trainable_parameters(state.model)
+    exempt = () if state.model.uncond_inputs.any() else ("alpha_uncond_prompt",)
+    faults = [n for n, p in named if p.grad is None or not torch.isfinite(p.grad).all()
+              or not (p.grad.any() or n.endswith(exempt))]
+    dead = [k for k in branch_losses if not (math.isfinite(m[k]) and m[k] != 0.0)]
+    row = dict(ms=ms, peak_gib=peak, launches=launches, derived=expected, batch=batch)
+    log(f"phase {phase} full-width '{name}' B={batch} step {state.step}: {ms:.1f} ms, peak memory "
+        f"{peak:.2f} GiB; launches {launches} (derived {expected}); {len(named) - len(faults)} of "
+        f"{len(named)} trained tensors with a finite nonzero gradient (exempt {exempt}); warm-up "
+        f"pseudo_val={warm['pseudo_val']:.5f}; " + " ".join(
+            f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms")
+        + f"; {time.perf_counter() - t0:.1f} s [{card}]")
+    if launches != expected:
+        raise AssertionError(f"phase {phase} '{name}' launched {launches}; derived {expected}")
+    if faults or dead or not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"phase {phase} '{name}': gradients {faults[:10]}, losses {dead}: {m}")
+    if keep is not None:
+        keep(state)
+    del state, batches, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
 
 
 # ------------------------------------------------------------------ phase 12
@@ -2183,6 +2222,240 @@ def run_nccl_cli(card):
             raise AssertionError(f"phase 12 (c): --eval-only gave {again}, the run's eval {results}")
 
 
+# ------------------------------------------------------------------ phase 13
+# the model variants of ROADMAP §A3 in two step groups (MADMConfig fields,
+# TrainConfig fields), as tests/test_torch_variant_step_*.py group them
+SELECT = (3, 7, 12, 20, 26, 33, 41, 48, 55, 63, 76)  # the concat slot's 11 prompt tokens
+CAPTURE_UP = dict(attention_features_res=(16, 32), attention_features_location=("up",))
+VARIANT_GROUPS = {
+    "attention": (dict(CAPTURE_UP, concat_attention_to_conv_seg=True, attention_select_index=SELECT),
+                  dict(fd_attention=0.5, target_attention_loss=True)),
+    "structure": (dict(sem_seg_head_sec_modal=True, mask_diff="rgb=0_Depth=1", input_channel_plus=1,
+                       concat_pixel_shuffle=True, multi_layer_prompt=True, head_fusion="isa",
+                       final_fuse_vae_decoder_feat=True), {}),
+}
+VARIANT_LOSSES = {"attention": ("feature_distance_loss", "target_attention_loss"), "structure": (),
+                  "isa": ()}
+# the UNet's 16 cross-attentions in pass order, (location, res at the 512 naming)
+CROSS_ATTENTIONS = (tuple(("down", 64 >> b) for b in range(3) for _ in range(2)) + (("mid", 8),)
+                    + tuple(("up", 8 << b) for b in range(1, 4) for _ in range(3)))
+# the eval heads of phase 13 (c): the variants the kernels do not serve
+# ('none'), and the second head in the kernel heads
+EVAL_VARIANTS = {"isa": dict(head_fusion="isa"), "conv": dict(head_fusion="conv"),
+                 "sep_conv": dict(head_fusion="sep_conv"), "final_fuse": dict(final_fuse_vae_decoder_feat=True),
+                 "concat": dict(CAPTURE_UP, concat_attention_to_conv_seg=True, attention_select_index=SELECT)}
+
+
+def captured(cfg):
+    """Which of the 16 cross-attentions a capture pass of ``cfg`` captures."""
+    return [loc in cfg.attention_features_location and res in cfg.attention_features_res
+            for loc, res in CROSS_ATTENTIONS]
+
+
+def variant_launches(cfg, tc):
+    """K1 and K3 launches of one step with attention capture
+    (``derived_launches`` for its passes): a capture pass runs its c
+    captured cross-attentions in plain torch, so it launches c fewer K1 and,
+    under a gradient, c fewer K3.  The teacher captures under
+    target_attention_loss or the concat slot, the source under fd_attention
+    or the slot, the mixed pass under the slot; fd_attention's baseline pass
+    (no decoder) captures; target_attention_loss adds a student pass without
+    the decoder whose loss reads the maps alone, so K3 runs for the
+    attentions before the last captured one (every attn1 up to its block,
+    and the uncaptured attn2 before it)."""
+    base = derived_launches(tc)
+    cap = captured(cfg)
+    c, concat = sum(cap), cfg.concat_attention_to_conv_seg
+    k1 = base["K1"] - c * (bool(tc.target_attention_loss or concat) + bool(tc.fd_attention or concat) + concat)
+    k3 = base["K3"] - c * (bool(tc.fd_attention or concat) + concat)
+    if tc.fd_attention and not tc.fd:
+        k1 += 33 - c
+    if tc.target_attention_loss:
+        last = max(i for i, x in enumerate(cap) if x)
+        k1 += 33 - c
+        k3 += (last + 1) + sum(not x for x in cap[:last])
+    return {"K1": k1, "K3": k3}
+
+
+def check_variant_toy():
+    """Phase 13 (a): one toy fp32 step of each variant group, CUDA against
+    CPU at phase 6's tolerances on phase 6's weights (``init_random_``,
+    conv_seg unscaled), launches as derived.  With phase 11's conv_seg x40
+    the 'structure' step is too ill-conditioned for fp32 to meet them on
+    either side: on the CPU its fp32 gradient sits 1.16e-3 of the largest
+    entry from fp64 (ISA's key projection, a ReLU near 0 on 16 tokens),
+    grad_norm 1.4e-4 relative; unscaled, 2.7e-4 and 8e-6."""
+    check_toy_groups("13", VARIANT_GROUPS, VARIANT_LOSSES, variant_launches,
+                     lambda cfg, device, gen: init_random_(MADM(cfg, device=device, trainable=True), gen))
+
+
+def check_round_trip(state):
+    """A full-width model of the variants through the released layout
+    (``reference_state_dict`` -> ``convert_madm_pth`` -> ``merge_into_model``
+    into a fresh model) and through its own state dict: every tensor back
+    equal."""
+    model = state.model
+    converted = convert_madm_pth(reference_state_dict(model))
+    fresh = MADM(model.cfg, device="cuda", trainable=True)
+    merge_into_model(fresh, converted)
+    own, back = model.state_dict(), fresh.state_dict()
+    bad = [k for k in converted if not torch.equal(own[k], back[k])]
+    buf = io.BytesIO()
+    torch.save(own, buf)
+    buf.seek(0)
+    fresh.load_state_dict(torch.load(buf, weights_only=True, map_location="cuda"))
+    back = fresh.state_dict()
+    bad += [k for k in own if not torch.equal(own[k], back[k])]
+    trees = sorted({k.split(".")[0] for k in converted})
+    log(f"phase 13 checkpoint round trip ({model.cfg.head_fusion} head, second head "
+        f"{model.cfg.sem_seg_head_sec_modal}, tower {model.cfg.concat_pixel_shuffle}, per-layer prompts "
+        f"{model.cfg.multi_layer_prompt}): {len(converted)} released-layout tensors of {trees} and "
+        f"{len(own)} state-dict tensors back equal: {not bad}")
+    if bad:
+        raise AssertionError(f"phase 13 round trip changed {bad[:10]}")
+    del fresh
+
+
+def run_variant_full(card):
+    """Phase 13 (b): each group at full width in bf16, B=1 ('structure' at
+    B=2 too), then ISA alone at B=1 and B=2 (the head fuses at 512x512:
+    the global relation's [64 B, 4096, 4096] fp32 similarities), each with
+    ``run_ablation_full``'s checks and launches as derived; each group's
+    model round-trips its checkpoints."""
+    rows = {}
+    for name, (model_kw, tc_kw) in VARIANT_GROUPS.items():
+        rows[name, 1] = run_group_full("13", name, model_kw, tc_kw, VARIANT_LOSSES[name], variant_launches,
+                                       card, keep=check_round_trip)
+    rows["structure", 2] = run_group_full("13", "structure", *VARIANT_GROUPS["structure"], (),
+                                          variant_launches, card, batch=2)
+    for b in (1, 2):
+        rows["isa", b] = run_group_full("13", "isa", dict(head_fusion="isa"), {}, (), variant_launches, card,
+                                        batch=b)
+    return rows
+
+
+def run_variant_eval(card):
+    """Phase 13 (c): full-width bf16 eval passes at B=1 and B=2 of the head
+    variants ('none': the module head; the concat slot's pass captures) and
+    of the second head in 'aspp' (K2) and 'full' (K6, K7) on its own
+    weights: ids in range, launches, ms/crop; the second head's kernel ids
+    equal its module head's on >= 99% of pixels (bf16 near-ties) and not
+    the first head's."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    images = {b: torch.rand(b, 512, 512, 3, device="cuda", generator=gen) for b in (1, 2)}
+    models = dict(EVAL_VARIANTS, sec=dict(sem_seg_head_sec_modal=True))
+    rows = {}
+    for name, kw in models.items():
+        cfg = MADMConfig(**kw)
+        model = init_random_(MADM(cfg, device="cuda"), torch.Generator(device="cuda").manual_seed(SEED))
+        if name == "sec":  # the second head's own weights
+            sec_gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+            with torch.no_grad():
+                w = model.sem_seg_head_sec_modal.conv_seg.weight
+                w.copy_(torch.randn(w.shape, device="cuda", generator=sec_gen).to(w.dtype) * 0.01)
+        c = sum(captured(cfg)) if cfg.concat_attention_to_conv_seg else 0
+        for mode in (("aspp", "full") if name == "sec" else ("none",)):
+            expected = {"none": {"K1": 34 - c}, "aspp": {"K1": 34, "K2": 1},
+                        "full": {"K1": 34, "K6": 3, "K7": 1}}[mode]
+            for b, x in images.items():
+                model.eval_forward_ids(x, eval_head=mode)  # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                ids = model.eval_forward_ids(x, eval_head=mode)
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                check_ids(ids, (b, 512, 512), cfg.num_classes)
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: model.eval_forward_ids(x, eval_head=mode), reps=3, warmup=0)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                extra = ""
+                if name == "sec":
+                    with torch.no_grad():
+                        feats = model.backbone_forward(x)["output_features"]
+                        own = argmax_classes(model.sem_seg_head_sec_modal(feats))
+                        first = argmax_classes(model.sem_seg_head(feats))
+                    agree, other = ((ids == own).double().mean().item(), (ids == first).double().mean().item())
+                    extra = (f"; ids equal the second head's module argmax on {agree:.4f} of pixels, the "
+                             f"first head's on {other:.4f}")
+                    if agree < 0.99 or other > 0.99:
+                        raise AssertionError(f"phase 13 second head '{mode}' B={b}: agree {agree}, first {other}")
+                rows[name, mode, b] = dict(ms_per_crop=ms / b, launches=launches, peak_gib=peak)
+                log(f"phase 13 full-width eval '{name}' '{mode}' B={b}: launches {launches} (expected "
+                    f"{expected}); {ms / b:.2f} ms/crop ({ms:.2f} ms/pass), peak memory {peak:.2f} GiB"
+                    f"{extra} [{card}]")
+                if launches != expected:
+                    raise AssertionError(f"phase 13 eval '{name}' '{mode}' B={b} launched {launches}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_capture_layers(gen):
+    """Phase 13 (d): a captured cross-attention layer (explicit fp32 softmax,
+    no kernel) against the same layer through K1, bf16, at each captured
+    shape: Sq 1024 (D 80) and 256 (D 160), Sk 77, 8 heads; within K1's
+    2^-7 x max(1, max|ref|), its probabilities summing to 1, and no K1
+    launch; ms of both."""
+    from madm_torch.models.sd.layers import Attention
+
+    for sq, d in ((1024, 80), (256, 160)):
+        layer = Attention(8 * d, 8, d, context_dim=768).to("cuda", torch.bfloat16)
+        x = torch.randn(1, sq, 8 * d, device="cuda", generator=gen).bfloat16()
+        ctx = torch.randn(1, 77, 768, device="cuda", generator=gen).bfloat16()
+        with torch.no_grad():
+            ref = layer(x, ctx)
+            probs = []
+            reset_counts()
+            out = layer(x, ctx, probs)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            ms = cuda_ms(lambda: layer(x, ctx, []))
+            k1_ms = cuda_ms(lambda: layer(x, ctx))
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2.0 ** -7 * max(1.0, ref.float().abs().max().item())
+        sums = (probs[0].sum(-1) - 1).abs().max().item()
+        log(f"phase 13 captured attn2 [B,Sq,Sk,H,D]=[1,{sq},77,8,{d}]: max_abs_err={err:.3e} against K1 "
+            f"(tol {tol:.3e}); probabilities [1,{sq},77] sum to 1 within {sums:.1e}; launches {launches}; "
+            f"layer ms captured {ms:.4f}, through K1 {k1_ms:.4f}")
+        if not (err <= tol and sums <= 1e-5 and not launches):
+            raise AssertionError(f"phase 13 captured layer at Sq={sq}: err {err}, sums {sums}, {launches}")
+
+
+def run_slide_training(card):
+    """Phase 13 (e): one slide_training step at [1, 512, 1024, 3] (decoder
+    losses off, as the step requires): every pass takes the sliding window
+    of 3 crops a pass at B=1, so K1 3 x 3 x 34 (teacher, source, mixed, each
+    with the s0 decoder) and K3 2 x 3 x 32, after a warm-up step; ms, peak
+    memory, finite losses."""
+    cfg = MADMConfig(slide_training=True)
+    tc = TrainConfig(vae_decoder_loss="", reg_uncertain=False)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    state = make_train_state(ablation_model(cfg, "cuda", gen), tc)
+    batches = synthetic_batches(1, (512, 1024), cfg.num_classes, gen)
+    train(state, batches, steps=1, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    m = train(state, batches, steps=1, generator=gen)[0]
+    end.record()
+    end.synchronize()
+    launches = launch_counts()
+    n = len(state.model.slide_windows(512, 1024))
+    expected = {"K1": 3 * n * 34, "K3": 2 * n * 32}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 13 slide_training step [1,512,1024,3] ({n} windows a pass): {start.elapsed_time(end):.1f} ms, "
+        f"peak memory {peak:.2f} GiB; launches {launches} (derived {expected}); "
+        + " ".join(f"{k}={v:.5f}" for k, v in m.items() if k != "step_ms") + f" [{card}]")
+    if launches != expected or not all(math.isfinite(v) for v in m.values()):
+        raise AssertionError(f"phase 13 slide_training: launches {launches}, metrics {m}")
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -2260,6 +2533,17 @@ def main() -> int:
     phase_done("12 (b) (two ranks on one card, gloo)")
     run_nccl_cli(card)
     phase_done("12 (c) (the CLI on NCCL)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_variant_toy()
+    phase_done("13 (a) (the variant groups' toy steps, CUDA against CPU)")
+    run_variant_full(card)
+    phase_done("13 (b) (the variant groups at full width)")
+    run_variant_eval(card)
+    phase_done("13 (c) (the variant eval heads at full width)")
+    check_capture_layers(gen)
+    run_slide_training(card)
+    phase_done("13 (d, e) (captured layers against K1, slide_training)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)

@@ -5,6 +5,7 @@ weight loaders of SD-v1.4 snapshots and released MADM ``.pth`` files
 
 from .checkpointer import BestCheckpointer, Checkpointer, PeriodicCheckpointer, load_checkpoint
 from .converter import (
+    expand_conv_in,
     convert_madm_pth,
     load_safetensors,
     load_sd_snapshot,
@@ -21,6 +22,7 @@ __all__ = [
     "Checkpointer",
     "PeriodicCheckpointer",
     "convert_madm_pth",
+    "expand_conv_in",
     "load_checkpoint",
     "load_safetensors",
     "load_sd_snapshot",

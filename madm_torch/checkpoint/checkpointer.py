@@ -126,7 +126,7 @@ def load_checkpoint(path: str, state):
     state.model.load_state_dict(ckpt["model"])
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
-    if "consts" in ckpt and state.tc.fd:
+    if "consts" in ckpt and (state.tc.fd or state.tc.fd_attention):
         if not state.consts:
             add_feature_distance_baseline(state)
         for name, sd in ckpt["consts"].items():

@@ -186,7 +186,8 @@ _PREFIXES = (  # (released prefix, port prefix), checked in order
     ("backbone.feature_extractor.clip_project_others.", "prompt.clip_project_others."),
     ("backbone.feature_extractor.ema_clip_project_others.", "ema.clip_project_others."),
 )
-_HEADS = (("sem_seg_head.", "sem_seg_head."), ("ema_sem_seg_head.", "ema.sem_seg_head."))
+_HEADS = (("sem_seg_head.", "sem_seg_head."), ("ema_sem_seg_head.", "ema.sem_seg_head."),
+          ("sem_seg_head_sec_modal.", "sem_seg_head_sec_modal."))
 _PEFT = re.compile(r"(.*)\.lora_(A|B)\.([^.]+)\.weight")
 
 
@@ -246,6 +247,24 @@ def convert_madm_pth(path_or_sd, in_index: Sequence[int] = (0, 1, 2, 3)) -> Dict
     if skipped:
         logger.info(f"convert_madm_pth: skipped {skipped} keys outside MADM's trained parts")
     return out
+
+
+def expand_conv_in(weight: torch.Tensor, input_channel_plus: int = 0,
+                   concat_pixel_shuffle: bool = False) -> torch.Tensor:
+    """Widen a 4-channel SD conv_in weight [out, 4, kh, kw] for the conv_in
+    surgery (JAX ``expand_conv_in``, reference ``ldm_diffusers.py:60-99``):
+    ``input_channel_plus=N`` scales it by ``4./4 + N`` (the reference's
+    literal expression: 1 + N) and appends copies of its last N input
+    channels; else ``concat_pixel_shuffle`` takes 17 copies of it / 17 (68
+    inputs).  With both, the first rule alone applies, as in JAX."""
+    if weight.shape[1] != 4:
+        raise ValueError(f"conv_in weight {tuple(weight.shape)} does not have 4 input channels")
+    if input_channel_plus:
+        w = weight * (4.0 / 4 + input_channel_plus)
+        return torch.cat([w, w[:, -input_channel_plus:]], dim=1)
+    if concat_pixel_shuffle:
+        return torch.cat([weight / 17.0] * 17, dim=1)
+    return weight
 
 
 def merge_into_model(model: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
@@ -322,9 +341,9 @@ def reference_state_dict(model: nn.Module, in_index: Sequence[int] = (0, 1, 2, 3
             _, name, rest = unet_key.split(".", 2)
             site, _, leaf = rest.rpartition(".")
             out[f"{prefix}{site}.{leaf}.{name}.weight"] = v
-        elif key.startswith(("sem_seg_head.", "ema.sem_seg_head.")):
-            src = "ema_sem_seg_head." if key.startswith("ema.") else "sem_seg_head."
-            rel = key.split("sem_seg_head.", 1)[1]
+        elif key.startswith(("sem_seg_head.", "ema.sem_seg_head.", "sem_seg_head_sec_modal.")):
+            src, rel = key.removeprefix("ema.").split(".", 1)
+            src = ("ema_" if key.startswith("ema.") else "") + src + "."
             m = re.fullmatch(r"embed_layers\.(\d+)\.(.+)", rel)
             if m:
                 rel = f"embed_layers.{in_index[int(m.group(1))]}.{m.group(2)}"

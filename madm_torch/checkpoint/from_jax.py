@@ -9,7 +9,9 @@ Besides ``params`` (the LoRA adapters ``params['lora']`` among them) and
 ``consts`` it carries what a JAX ``TrainState`` adds: the EMA teacher tree
 (``ema``: projections, head, ``clip_project_others``, and ``unet`` and
 ``lora`` where an ``ema_w_unet`` state has them) and the BN statistics ``state.head_bn`` and
-``state.ema_head_bn``.  Reads nested dicts of arrays (anything
+``state.ema_head_bn``; and the variants' trees: the second head
+(``params.head_sec`` with ``state.head_sec_bn``), the pixel-unshuffle tower,
+the ISA fuse layer and per-layer prompts.  Reads nested dicts of arrays (anything
 ``numpy.asarray`` takes); imports nothing of the JAX package.
 
 Layout transforms (JAX -> torch):
@@ -88,7 +90,14 @@ def _head(params: Dict[str, Any], stats: Dict[str, Any],
         if m:
             return f"embed_layers.{m.group(1)}.proj"
         m = re.fullmatch(r"aspp_(\d+)", p)
-        return f"aspp_modules.{m.group(1)}" if m else p
+        if m:
+            return f"aspp_modules.{m.group(1)}"
+        m = re.fullmatch(r"(query_project|key_project)_(\d+)", p)  # ISA's ConvModule stacks
+        if m:
+            return f"{m.group(1)}.{m.group(2)}"
+        if p == "vae_decoder_feat_proj":  # a one-block Sequential in the reference
+            return "vae_decoder_feat_proj.0"
+        return _BOTTLENECK.get(p, p)
 
     out = _module_tree(params, prefix, rename)
     out.update(_module_tree(stats, prefix, rename))
@@ -137,6 +146,10 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_projections(params["projections"]))
     if "head" in params:
         out.update(_head(params["head"], state.get("head_bn", {})))
+    if "head_sec" in params:
+        out.update(_head(params["head_sec"], state.get("head_sec_bn", {}), "sem_seg_head_sec_modal"))
+    if "pixel_unshuffle" in params:
+        out.update(_module_tree(params["pixel_unshuffle"], "pixel_unshuffle"))
     ema = variables.get("ema", {})
     if "projections" in ema:
         out.update(_projections(ema["projections"], "ema.feature_projections"))

@@ -27,14 +27,19 @@ Differences from the JAX launcher:
   run raises.  Each rank loads; rank 0 alone writes ``config.yaml``,
   ``metrics.json``, the visualisations and the checkpoints.  Under
   ``--num_chips`` the launcher returns None.
-- The flags whose branch the port has not taken raise
-  (``UNPORTED_FLAGS``, each with its ROADMAP section: the model variants
-  and attention-capture losses of §A3, ``--with_clip`` of §A4).
-  The step's ablation flags (MIC, ``--FD``, ``--noise_reg``,
-  ``--denoise_supervise``, the prompt ablations, ``--prompt_seq_len``,
-  ``--remove_texture``, ``--remove_amp``, ``--merge_with_pl_data``, ...),
-  ``--finetune_*``, ``--ema_w_unet``, ``--unet_lr`` and ``--warmup_lr`` map
-  onto the config as the JAX launcher maps them.
+- ``--with_clip`` (§A4), whose branch the port has not taken, raises
+  (``UNPORTED_FLAGS``).  The step's ablation flags (MIC, ``--FD``,
+  ``--noise_reg``, ``--denoise_supervise``, the prompt ablations,
+  ``--prompt_seq_len``, ``--remove_texture``, ``--remove_amp``,
+  ``--merge_with_pl_data``, ...), ``--finetune_*``, ``--ema_w_unet``,
+  ``--unet_lr``, ``--warmup_lr`` and the model variants (the attention
+  consumers ``--FD_attention``, ``--target_attention_loss`` and
+  ``--concat_corss_attention_feat_to_conv_seg`` with
+  ``--attention_select_index``, the second head, the prompt structures,
+  ``--slide_training``, ``--final_fuse_vae_decoder_feat``, the conv_in
+  surgery ``--mask_diff`` / ``--concat_pixel_shuffle``, and the scale
+  rewrites ``--without_vae_encoder_feat`` / ``--single_scale_decoder``) map
+  onto the config as the JAX launcher maps them, its defaults included.
 - Weights start seeded random (``cfg.train.seed``); ``--sd-snapshot`` (or
   ``MADM_SD_SNAPSHOT``) overlays an HF SD-v1.4 snapshot's VAE and UNet and,
   where it has ``text_encoder/``, recomputes ``uncond_inputs`` (and with
@@ -65,6 +70,7 @@ from .checkpoint import (
     BestCheckpointer,
     Checkpointer,
     PeriodicCheckpointer,
+    expand_conv_in,
     load_sd_snapshot,
     merge_into_model,
     snapshot_state_dict,
@@ -90,16 +96,7 @@ logger = logging.getLogger("madm_torch")
 # flags whose branch the port has not taken, each with the ROADMAP section
 # that queues it: set to anything but the parser's default, each raises
 # NotImplementedError naming it
-UNPORTED_FLAGS = {
-    **dict.fromkeys((
-        "--enable_sem_seg_head_sec_modal", "--slide_training", "--final_fuse_vae_decoder_feat",
-        "--without_prompt", "--without_prompt_alpha", "--multi_layer_prompt",
-        "--target_attention_loss", "--attention_select_index", "--FD_attention",
-        "--concat_corss_attention_feat_to_conv_seg", "--without_vae_encoder_feat",
-        "--baseline_wo_encoder_feat", "--single_scale_decoder", "--concat_pixel_shuffle",
-        "--mask_diff"), "§A3"),
-    "--with_clip": "§A4",
-}
+UNPORTED_FLAGS = {"--with_clip": "§A4"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -256,6 +253,8 @@ def apply_cli_mutations(cfg, args):
         cfg.train.amp["enabled"] = True  # bf16 compute; no GradScaler
     if args.reference_world_size is not None:
         cfg.train.reference_world_size = args.reference_world_size
+    if args.enable_sem_seg_head_sec_modal:
+        cfg.model.sem_seg_head_sec_modal = True
     if args.stop_iter is not None:
         cfg.train.stop_iter = args.stop_iter
     if args.unet_lr is not None:
@@ -318,6 +317,10 @@ def apply_cli_mutations(cfg, args):
         # the edge-map consistency pass (reference main.py:462-464)
         cfg.dataloader.train.dataset.remove_texture = True
         cfg.model.remove_texture = True
+    if args.slide_training:
+        cfg.model.slide_training = True
+    if args.final_fuse_vae_decoder_feat:
+        cfg.model.final_fuse_vae_decoder_feat = True
     if args.mask_prompt_ratio is not None:
         cfg.model.mask_prompt_ratio = args.mask_prompt_ratio
     if args.detach_mask_prompt:
@@ -328,10 +331,29 @@ def apply_cli_mutations(cfg, args):
         cfg.model.prompt_confidence = args.prompt_confidence
     if args.rand_prompt_scale is not None:
         cfg.model.rand_prompt_scale = args.rand_prompt_scale
+    if args.without_prompt:
+        cfg.model.without_prompt = True
+    if args.without_prompt_alpha:
+        cfg.model.without_prompt_alpha = True
     if args.prompt_seq_len is not None:
         cfg.model.prompt_seq_len = args.prompt_seq_len
     if args.denoise_interval is not None:
         cfg.model.denoise_interval = args.denoise_interval
+    if args.multi_layer_prompt:
+        cfg.model.multi_layer_prompt = True
+    if args.target_attention_loss:
+        # the consistency needs maps: the FD_attention tap set where the
+        # config has none (JAX main.py:305-312)
+        cfg.model.target_attention_loss = True
+        if not cfg.model.get("attention_features_res", None):
+            cfg.model.attention_features_res = [16, 32]
+            cfg.model.attention_features_location = ["up"]
+    if args.attention_select_index is not None:
+        cfg.model.attention_select_index = list(args.attention_select_index)
+    if args.FD_attention is not None:  # reference main.py:545-548
+        cfg.model.fd_attention = args.FD_attention
+        cfg.model.attention_features_res = [16, 32]
+        cfg.model.attention_features_location = ["up"]
     if args.merge_with_pl_data is not None:
         mode = args.merge_with_pl_data
         if "-" in mode:  # 'linear_mix-0.3' (reference cmdise.py:204-205)
@@ -342,9 +364,35 @@ def apply_cli_mutations(cfg, args):
         cfg.dataloader.train.dataset.pl_data_path = args.pl_data_path
     if args.merge_more_target_data is not None:
         cfg.dataloader.train.dataset.merge_more_target_data = args.merge_more_target_data
+    if args.with_clip is not None:
+        cfg.model.clip_state = args.with_clip
+    if args.concat_attention_to_conv_seg:
+        cfg.model.concat_attention_to_conv_seg = True
+    if args.without_vae_encoder_feat or args.baseline_wo_encoder_feat:
+        # drop the VAE-branch scale, out_features[0] (reference
+        # main.py:469-479,645-652; JAX main.py:319-329)
+        if cfg.model.out_features[0] not in ("s0", "s2"):
+            raise ValueError(f"--without_vae_encoder_feat: out_features {cfg.model.out_features} "
+                             "does not lead with the VAE scale")
+        for key in ("out_features", "in_keys", "feature_dims", "projection_dim"):
+            cfg.model[key] = list(cfg.model[key][1:])
+    if args.single_scale_decoder:
+        # only the highest-res UNet tap feeds the head (reference
+        # main.py:584-592; tap channels of the full SD UNet, as there)
+        cfg.model.out_features = ["s3"]
+        cfg.model.in_keys = ["s3"]
+        cfg.model.feature_dims = [320]
+        cfg.model.projection_dim = [512]
+        cfg.model.unet_block_indices = [11]
     if args.fda_fusion_val is not None:
         cfg.dataloader.train.dataset.fda_fusion_val = list(args.fda_fusion_val)
         cfg.dataloader.test.dataset.fda_fusion_val = list(args.fda_fusion_val)
+    if args.concat_pixel_shuffle:
+        cfg.model.concat_pixel_shuffle = True
+    if args.mask_diff is not None:
+        # 'circle' adds a 2-channel mask input, otherwise 1 (main.py:654-660)
+        cfg.model.mask_diff = args.mask_diff
+        cfg.model.input_channel_plus = 2 if args.mask_diff == "circle" else 1
     if args.add_latent_noise != -1:
         cfg.model.add_latent_noise = args.add_latent_noise
     if args.norm_latent_noise:
@@ -414,13 +462,20 @@ def load_snapshot_(model, snapshot_dir: str):
     shrinks)."""
     logger.info(f"loading SD snapshot from {snapshot_dir}")
     snap = load_sd_snapshot(snapshot_dir)
-    merge_into_model(model, snapshot_state_dict(snap))
+    state = snapshot_state_dict(snap)
+    cfg = model.cfg
+    if cfg.input_channel_plus or cfg.concat_pixel_shuffle:
+        # conv_in surgery: the 4-channel SD kernel widened by the
+        # reference's copy rules (JAX main.py:424-433)
+        state["unet.conv_in.weight"] = expand_conv_in(state["unet.conv_in.weight"],
+                                                      cfg.input_channel_plus, cfg.concat_pixel_shuffle)
+    merge_into_model(model, state)
     if "clip_text" not in snap:
         return model
     with torch.no_grad():
         model.uncond_inputs.copy_(compute_uncond_inputs(snap["clip_text"], device=model.device))
         if model.cfg.init_uncond_prompt:
-            for p in model.prompt.values():
+            for p in (p for p in model.prompt.values() if p.prompt_embed is not None):
                 p.prompt_embed.copy_(resize_prompt(model.uncond_inputs, p.prompt_embed.shape[-2],
                                                    antialias=True))
     return model
@@ -472,7 +527,7 @@ def do_train(cfg, args):
     ckpt = Checkpointer(cfg.train.output_dir)
     state, _ = ckpt.resume_or_load(state, args.init_from, args.resume)
     start_iter = state.step
-    if tc.fd and "ori_unet" not in state.consts:
+    if (tc.fd or tc.fd_attention) and "ori_unet" not in state.consts:
         # the fd target: the UNet and prompt the run starts from (JAX
         # main.py:563-568); a resumed checkpoint restores its own
         add_feature_distance_baseline(state)

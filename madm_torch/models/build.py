@@ -8,9 +8,12 @@ surface.  UDA knobs live on the model node as in the reference's
 ``madm_torch.train.build_train_config`` reads them from there.  Those the
 model reads itself (``_MODEL_KNOBS``: the prompt ablations and
 ``prompt_seq_len``, ``reg_target_palette``, ``init_uncond_prompt``,
-``ema_w_unet``) also become ``MADMConfig`` fields; the builder only checks
-that it knows the others.  Unknown keys raise.  A value whose branch the
-port has not taken raises ``NotImplementedError`` naming it.
+``ema_w_unet``, the prompt structures, and the attention consumers
+``fd_attention`` and ``target_attention_loss``, which the model checks
+against its capture settings) also become ``MADMConfig`` fields; the builder
+only checks that it knows the others.  Unknown keys raise.  ``clip_state``
+other than 'no' (the CLIP image prefix, ROADMAP §A4) raises
+``NotImplementedError``.
 ``ema_w_unet`` is honoured here, where the JAX builder drops the key, so
 that the JAX launcher's ``--ema_w_unet`` changes nothing (ROADMAP §C).
 
@@ -62,14 +65,8 @@ _UDA_KEYS = frozenset({
 
 # UDA knobs that are MADMConfig fields (the rest configure the train step)
 _MODEL_KNOBS = ("init_uncond_prompt", "ema_w_unet", "mask_prompt_ratio", "detach_mask_prompt",
-                "prompt_perturbation", "rand_prompt_scale", "prompt_seq_len", "reg_target_palette")
-
-
-def _refuse(name: str, value, ported) -> None:
-    if value != ported:
-        raise NotImplementedError(
-            f"build_madm: {name}={value!r} is not ported to madm_torch yet (it takes {ported!r}; "
-            "ROADMAP §A3)")
+                "prompt_perturbation", "rand_prompt_scale", "prompt_seq_len", "reg_target_palette",
+                "without_prompt", "without_prompt_alpha", "fd_attention", "target_attention_loss")
 
 
 def build_madm(
@@ -118,23 +115,9 @@ def build_madm(
     if unknown:
         raise ValueError(f"build_madm: unknown config keys {sorted(unknown)} "
                          f"(valid UDA knobs: {sorted(_UDA_KEYS)})")
-    for name, value, ported in (
-            ("without_prompt", bool(extra.get("without_prompt")), False),
-            ("without_prompt_alpha", bool(extra.get("without_prompt_alpha")), False),
-            ("unet_block_indices_type", unet_block_indices_type, "after"),
-            ("head_fusion", head_fusion, "aspp"),
-            ("final_fuse_vae_decoder_feat", final_fuse_vae_decoder_feat, False),
-            ("concat_attention_to_conv_seg", concat_attention_to_conv_seg, False),
-            ("clip_state", clip_state, "no"),
-            ("sem_seg_head_sec_modal", sem_seg_head_sec_modal, False),
-            ("input_channel_plus", input_channel_plus, 0),
-            ("mask_diff", mask_diff, None),
-            ("concat_pixel_shuffle", concat_pixel_shuffle, False),
-            ("multi_layer_prompt", multi_layer_prompt, False),
-            ("attention_features_res", tuple(attention_features_res or ()), ()),
-            ("attention_features_location", tuple(attention_features_location or ()), ()),
-            ("attention_select_index", attention_select_index, None)):
-        _refuse(name, value, ported)
+    if clip_state != "no":
+        raise NotImplementedError(f"build_madm: clip_state={clip_state!r} is not ported to madm_torch "
+                                  "yet (it takes 'no'; ROADMAP §A4)")
     if remat:
         # JAX's UNet rematerialisation changes memory, not results; the
         # port's step fits one 80 GB card without it (PERF.md §4)
@@ -157,6 +140,19 @@ def build_madm(
         crop_size=tuple(crop_size),
         lora_configs=tuple(lora_configs),
         slide_training=slide_training,
+        unet_block_indices_type=unet_block_indices_type,
+        head_fusion=head_fusion,
+        final_fuse_vae_decoder_feat=final_fuse_vae_decoder_feat,
+        concat_attention_to_conv_seg=concat_attention_to_conv_seg,
+        sem_seg_head_sec_modal=sem_seg_head_sec_modal,
+        multi_layer_prompt=multi_layer_prompt,
+        attention_features_res=tuple(attention_features_res or ()),
+        attention_features_location=tuple(attention_features_location or ()),
+        attention_select_index=(tuple(attention_select_index)
+                                if attention_select_index is not None else None),
+        input_channel_plus=input_channel_plus,
+        mask_diff=mask_diff,
+        concat_pixel_shuffle=concat_pixel_shuffle,
         add_latent_noise=add_latent_noise,
         norm_latent_noise=norm_latent_noise,
         **{k: extra[k] for k in _MODEL_KNOBS if extra.get(k) is not None},

@@ -3,13 +3,16 @@
 NCHW inside; module and parameter names follow diffusers so that a
 diffusers state dict loads with ``load_state_dict``.  Attention runs through
 ``ops.attention.dot_product_attention`` (kernel K1 on CUDA) on ``[B, S, H, D]``
-views of the projections, without transposes.
+views of the projections, without transposes.  A cross-attention handed a
+``capture`` list computes its softmax explicitly in plain torch instead and
+appends the head-mean probabilities (JAX ``Attention.capture_attn``,
+``madm_tpu/models/sd/layers.py:248-256``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -133,14 +136,25 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """``capture``: a list to append the head-mean probabilities
+        [B, Sq, Sk] fp32 to; the layer then computes fp32 logits x D^-0.5 and
+        their softmax explicitly, and multiplies V by the probabilities cast
+        to V's dtype, without the kernel."""
         ctx = x if context is None else context
         b, s, _ = x.shape
         sk = ctx.shape[1]
         q = self.to_q(x).view(b, s, self.heads, self.dim_head)
         k = self.to_k(ctx).view(b, sk, self.heads, self.dim_head)
         v = self.to_v(ctx).view(b, sk, self.heads, self.dim_head)
-        out = dot_product_attention(q, k, v, pack=self.pack)
+        if capture is None:
+            out = dot_product_attention(q, k, v, pack=self.pack)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * self.dim_head ** -0.5
+            p = torch.softmax(logits, dim=-1)
+            capture.append(p.mean(dim=1))
+            out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
         return self.to_out[0](out.reshape(b, s, self.heads * self.dim_head))
 
 
@@ -179,9 +193,11 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """``capture``: the cross-attention's (``Attention.forward``)."""
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, capture)
         return x + self.ff(self.norm3(x))
 
 
@@ -200,11 +216,12 @@ class Transformer2DModel(nn.Module):
         )
         self.proj_out = nn.Conv2d(inner, channels, 1)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                capture: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
         b, _, h, w = x.shape
         t = self.proj_in(self.norm(x))
         inner = t.shape[1]
         t = t.permute(0, 2, 3, 1).reshape(b, h * w, inner)
-        t = self.transformer_blocks[0](t, context)
+        t = self.transformer_blocks[0](t, context, capture)
         t = t.reshape(b, h, w, inner).permute(0, 3, 1, 2)
         return self.proj_out(t) + x

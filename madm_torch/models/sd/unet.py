@@ -1,9 +1,20 @@
 """SD-v1.4 UNet2DConditionModel with MADM's feature taps (port of
 ``madm_tpu/models/sd/unet.py``).
 
-- 'after' taps: the up-block resnets are numbered globally 0..11; for each
-  index in ``unet_block_indices`` the hidden state after that resnet (and its
-  attention) is returned, smallest resolution first.
+- taps: the up-block resnets are numbered globally 0..11; for each index in
+  ``unet_block_indices`` the hidden state after that resnet (and its
+  attention) is returned ('after'), or the concat of the hidden state and
+  its skip that enters the resnet ('in'), smallest resolution first.
+- ``in_channels``: conv_in's input, 4 latent channels plus those of the
+  conv_in-surgery ablations (``mask_diff``, ``concat_pixel_shuffle``).
+- the context is [B, 77, 768] for every cross-attention, or one per layer
+  [16, B, 77, 768] (``multi_layer_prompt``; down 2 a block, mid 1, up 3 a
+  block, in that order).
+- ``capture`` (an ``AttentionCapture``) names the cross-attentions whose
+  probabilities a pass keeps (JAX ``UNet2DCondition._capture``): res in the
+  512-input naming (down 64 >> level, mid 8, up 8 << level, up only where
+  the level has cross-attention); those layers run in plain torch, the
+  others keep the kernels.
 - an optional learned residual [B, 1280] (or [B, 1, 1280]) is added to the
   time embedding (the prompt generator's ``cond_time``).
 - ``flash_pack`` sends the self-attentions that ``pack_group`` picks through
@@ -38,20 +49,38 @@ IN_CHANNELS = 4
 OUT_CHANNELS = 4
 
 
+class AttentionCapture:
+    """The cross-attentions one pass captures (at ``location`` in 'down',
+    'mid', 'up' and ``res`` in the 512-input naming), and what they
+    captured: ``entries`` [(location, res, probs [B, Sq, Sk] fp32)] in the
+    order the pass ran them."""
+
+    def __init__(self, res: Sequence[int], location: Sequence[str]):
+        self.res, self.location = tuple(res), tuple(location)
+        self.entries: List[Tuple[str, int, torch.Tensor]] = []
+
+    def wants(self, location: str, res: int) -> bool:
+        return location in self.location and res in self.res
+
+
 class UNet2DCondition(nn.Module):
     def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS,
-                 unet_block_indices: Sequence[int] = (5, 8, 11), flash_pack: bool = False):
+                 unet_block_indices: Sequence[int] = (5, 8, 11), flash_pack: bool = False,
+                 in_channels: int = IN_CHANNELS, unet_block_indices_type: str = "after"):
         super().__init__()
+        if unet_block_indices_type not in ("in", "after"):
+            raise ValueError(f"unet_block_indices_type {unet_block_indices_type!r} is not 'in' or 'after'")
         boc = tuple(block_out_channels)
         self.boc = boc
         self.unet_block_indices = tuple(unet_block_indices)
+        self.indices_type = unet_block_indices_type
         temb = boc[0] * 4
         n = len(boc)
 
         def transformer(c):
             return Transformer2DModel(c, NUM_HEADS, c // NUM_HEADS, CROSS_ATTENTION_DIM, flash_pack)
 
-        self.conv_in = nn.Conv2d(IN_CHANNELS, boc[0], 3, padding=1)
+        self.conv_in = nn.Conv2d(in_channels, boc[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(boc[0], temb)
 
         self.down_blocks = nn.ModuleList()
@@ -98,9 +127,12 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor, context: torch.Tensor,
                 res_time_embedding: Optional[torch.Tensor] = None,
+                capture: Optional[AttentionCapture] = None,
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-        """sample [B, 4, h, w], timesteps [B], context [B, 77, 768] ->
-        (eps [B, 4, h, w], taps smallest-resolution first)."""
+        """sample [B, in_channels, h, w], timesteps [B], context [B, 77, 768]
+        or [16, B, 77, 768] -> (eps [B, 4, h, w], taps smallest-resolution
+        first); ``capture`` collects the probabilities of the layers it
+        names."""
         dtype = self.conv_in.weight.dtype
         timesteps = timesteps.expand(sample.shape[0])
         temb = self.time_embedding(timestep_embedding(timesteps, self.boc[0]).to(dtype))
@@ -109,31 +141,44 @@ class UNet2DCondition(nn.Module):
                 res_time_embedding = res_time_embedding[:, 0]
             temb = temb + res_time_embedding.to(temb.dtype)
         context = context.to(dtype)
+        layer_ctx = iter(context) if context.ndim == 4 else None
+
+        def attend(attn, x, location, res):
+            ctx = context if layer_ctx is None else next(layer_ctx)
+            if capture is None or not capture.wants(location, res):
+                return attn(x, ctx)
+            probs: List[torch.Tensor] = []
+            x = attn(x, ctx, probs)
+            capture.entries.append((location, res, probs[0]))
+            return x
 
         x = self.conv_in(sample.to(dtype))
         skips = [x]
-        for blk in self.down_blocks:
+        for level, blk in enumerate(self.down_blocks):
             for j, r in enumerate(blk.resnets):
                 x = r(x, temb)
                 if hasattr(blk, "attentions"):
-                    x = blk.attentions[j](x, context)
+                    x = attend(blk.attentions[j], x, "down", 64 >> level)
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
         x = self.mid_block.resnets[0](x, temb)
-        x = self.mid_block.attentions[0](x, context)
+        x = attend(self.mid_block.attentions[0], x, "mid", 8)
         x = self.mid_block.resnets[1](x, temb)
 
         taps = []
         gidx = 0
-        for blk in self.up_blocks:
+        for level, blk in enumerate(self.up_blocks):
             for j, r in enumerate(blk.resnets):
-                x = r(torch.cat([x, skips.pop()], dim=1), temb)
+                x = torch.cat([x, skips.pop()], dim=1)
+                if self.indices_type == "in" and gidx in self.unet_block_indices:
+                    taps.append(x)
+                x = r(x, temb)
                 if hasattr(blk, "attentions"):
-                    x = blk.attentions[j](x, context)
-                if gidx in self.unet_block_indices:
+                    x = attend(blk.attentions[j], x, "up", 8 << level)
+                if self.indices_type == "after" and gidx in self.unet_block_indices:
                     taps.append(x)
                 gidx += 1
             if hasattr(blk, "upsamplers"):

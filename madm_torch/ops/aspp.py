@@ -679,10 +679,15 @@ def _fold_bn(bn: torch.nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def fits_kernel(head) -> bool:
-    """Whether ``aspp_head_forward`` serves this head: sep-ASPP with
-    dilations 1/6/12/18, 256-wide embeds and branches, 4 inputs led by s0."""
+    """Whether ``aspp_head_forward`` serves this head: the sep-ASPP fuse
+    layer with dilations 1/6/12/18, 256-wide embeds and branches, 4 inputs
+    led by s0, conv_seg reading the fused features alone (no
+    ``final_fuse_vae_decoder_feat``, no concat slot; JAX ``_eval_head_mode``)."""
     return (
-        tuple(head.dilations) == (1, 6, 12, 18)
+        head.fusion == "aspp"
+        and not head.final_fuse_vae_decoder_feat
+        and not head.concat_attention_to_conv_seg
+        and tuple(head.dilations) == (1, 6, 12, 18)
         and head.embed_dims == 256
         and head.channels == KERNEL_PC
         and len(head.in_keys) == 4

@@ -76,7 +76,7 @@ def init_train_state(model_cfg: MADMConfig, train_cfg: TrainConfig, device: str 
     model = init_random_(MADM(model_cfg, device=dev, trainable=True),
                          torch.Generator(device=dev).manual_seed(seed))
     state = make_train_state(model, train_cfg)
-    return add_feature_distance_baseline(state) if train_cfg.fd else state
+    return add_feature_distance_baseline(state) if train_cfg.fd or train_cfg.fd_attention else state
 
 
 def train(state: TrainState, batches: Iterable[Dict[str, torch.Tensor]], steps: int,

@@ -86,10 +86,6 @@ from . import criterion
 from .ema import ema_alpha, update_ema
 from .optimizer import clip_by_global_norm_, get_lr_schedule, make_optimizer, set_lr
 
-# settings of the JAX step whose branches the port has not taken yet (they
-# need attention capture, ROADMAP §A3), with the one value it takes;
-# TrainConfig raises for any other
-_UNPORTED: Dict[str, Any] = {"fd_attention": 0.0, "target_attention_loss": False}
 PL_MERGE_MODES = ("only_pl_data", "linear_mix", "gradual_linear_mix", "anti_gradual_linear_mix",
                   "random_choice")
 
@@ -111,7 +107,7 @@ class TrainConfig:
     rev_noise_end_iter: int = 5000
     rev_noise_gradually: bool = True
     denoise_timestep_range: Tuple[int, int] = (60, 61)
-    vae_decoder_loss: str = "st"  # palette regression on 's' source, 't' mixed, or both
+    vae_decoder_loss: str = "st"  # palette regression on 's' source, 't' mixed, both, or none ('')
     vae_decoder_loss_type: str = "L1"  # or 'L2'
     vae_decoder_loss_weight: Tuple[float, float] = (1.0, 1.0)
     reg_uncertain: bool = True
@@ -125,8 +121,8 @@ class TrainConfig:
     remove_texture: bool = False  # the MIC loss slot on the target's edge map
     denoise_supervise: float = 0.0  # decoder latent at a drawn timestep
     fd: float = 0.0  # UNet taps against the initial UNet's (add_feature_distance_baseline)
-    fd_attention: float = 0.0
-    target_attention_loss: bool = False
+    fd_attention: float = 0.0  # fd on the up-block cross-attention maps (fd takes precedence)
+    target_attention_loss: bool = False  # student's target maps against the teacher's
     noise_reg: float = 0.0  # strong-augmented target against the noise-reg teacher
     mask_prompt_ratio: float = 0.0  # the MIC loss slot with a token-masked prompt
     detach_mask_prompt: bool = False
@@ -149,11 +145,7 @@ class TrainConfig:
     mu_dtype: Optional[str] = None  # first-moment storage: 'bfloat16' (adafactor's default) or fp32
 
     def __post_init__(self):
-        for name, off in _UNPORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(f"TrainConfig.{name} is not ported to madm_torch yet "
-                                          "(it needs attention capture, ROADMAP §A3)")
-        if not self.vae_decoder_loss or set(self.vae_decoder_loss) - set("st"):
+        if set(self.vae_decoder_loss) - set("st"):
             raise ValueError(f"vae_decoder_loss {self.vae_decoder_loss!r}")
         if self.vae_decoder_loss_type not in ("L1", "L2"):
             raise ValueError(f"vae_decoder_loss_type {self.vae_decoder_loss_type!r}")
@@ -284,11 +276,33 @@ def build_train_config(cfg) -> TrainConfig:
     )
 
 
+def check_composition(cfg: MADMConfig, tc: TrainConfig) -> None:
+    """The step's composition rules of JAX ``make_train_step``
+    (``train_step.py:246-276``): the concat slot is wired through the
+    source, mixed and teacher passes only, and the slide path gives no
+    decoder outputs."""
+    if cfg.concat_attention_to_conv_seg and (tc.mic or tc.mask_prompt_ratio or tc.prompt_perturbation
+                                             or tc.noise_reg or tc.prompt_confidence is not None):
+        raise ValueError("concat_attention_to_conv_seg does not compose with the aux-pass ablations "
+                         "(mic/mask_prompt/prompt_perturbation/noise_reg/prompt_confidence): their "
+                         "extra head calls are not wired for the concat slot")
+    if cfg.slide_training and (tc.vae_decoder_loss or tc.mic_reg or tc.denoise_supervise
+                               or tc.noise_reg or tc.reg_uncertain):
+        raise ValueError("slide_training is incompatible with decoder-output losses "
+                         "(vae_decoder_loss/mic_reg/denoise_supervise/noise_reg/reg_uncertain): set "
+                         "them off, as the reference requires")
+    if (tc.fd_attention or tc.target_attention_loss) and not cfg.attention_features_res:
+        raise ValueError("fd_attention and target_attention_loss need the model's "
+                         "attention_features_res/location")
+
+
 def make_train_state(model: MADM, tc: TrainConfig) -> TrainState:
     """The optimizer state of ``model`` (sharded over the ranks under a
-    process group); with ``tc.fd`` the caller adds the
-    baseline (``add_feature_distance_baseline``) once the weights it starts
-    from are loaded."""
+    process group), after ``check_composition``; with ``tc.fd`` or
+    ``tc.fd_attention`` the caller adds the baseline
+    (``add_feature_distance_baseline``) once the weights it starts from are
+    loaded."""
+    check_composition(model.cfg, tc)
     named = trainable_parameters(model)
     return TrainState(model=model, tc=tc,
                       optimizer=make_optimizer(model, named, tc.lr, tc.weight_decay,
@@ -380,14 +394,15 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
         draws["nr_jitter"], draws["nr_blur"] = strong()
         draws["t_nr"] = timesteps()
     seq_len = (cfg.prompt_seq_len if cfg is not None else None) or prompt_lib.PROMPT_SEQ_LEN
+    lead = (prompt_lib.NUM_UNET_LAYERS,) if cfg is not None and cfg.multi_layer_prompt else ()
     if cfg is not None and cfg.add_latent_noise != -1.0:
         draws["latent_noise"] = torch.randn(b, 4, h // 8, w // 8, generator=generator, device=dev)[rows]
     if tc.mask_prompt_ratio:
-        draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "masked_prompt", seq_len)
+        draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "masked_prompt", seq_len, lead)
     elif tc.prompt_perturbation:
-        draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "prompt_perturbation", seq_len)
+        draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "prompt_perturbation", seq_len, lead)
     if tc.prompt_confidence is not None:
-        draws["rand_prompt"] = prompt_lib.draw_prompt_ablation(generator, "rand_prompt", seq_len)
+        draws["rand_prompt"] = prompt_lib.draw_prompt_ablation(generator, "rand_prompt", seq_len, lead)
     if tc.merge_with_pl_data == "random_choice":
         draws["pl_choice"] = float(torch.rand((), generator=generator, device=dev).item())
     return draws
@@ -446,9 +461,21 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         draws = sample_draws(generator, tc, gt, cfg.num_classes, model.sem_seg_head, cfg)
     drop_src, drop_mix, drop_tch, *drop_aux = (None if d is None else d.to(dev) for d in draws["dropout"])
     src_lora, tgt_lora = pass_adapters(model)
+    modality = cfg.target_modality
+    concat = cfg.concat_attention_to_conv_seg
     step = state.step
-    if tc.fd and "ori_unet" not in state.consts:
-        raise ValueError("TrainConfig.fd needs add_feature_distance_baseline(state)")
+    if (tc.fd or tc.fd_attention) and "ori_unet" not in state.consts:
+        raise ValueError("TrainConfig.fd and fd_attention need add_feature_distance_baseline(state)")
+
+    def backbone(images, **kw):
+        """A pass; under ``slide_training`` an input larger than the crop
+        takes the sliding window (JAX's 'auto' form: a pass a window at
+        B=1 or past 8 crops), which gives ``output_features`` alone."""
+        if cfg.slide_training and tuple(images.shape[1:3]) != tuple(cfg.crop_size):
+            n = len(model.slide_windows(*images.shape[1:3]))
+            form = "window" if images.shape[0] == 1 or images.shape[0] * n > 8 else "batch"
+            return model.slide_backbone_forward(images, form=form, **kw)
+        return model.backbone_forward(images, **kw)
 
     # 1. EMA teacher
     update_ema(model.student_ema_pairs(), ema_alpha(step, tc.ema_alpha))
@@ -460,6 +487,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     table = torch.from_numpy(palette.reg_target_table(tc.train_palette, cfg.reg_target_palette))
     class_table = torch.from_numpy(palette.palette_table(tc.train_palette)[: cfg.num_classes])
+    tgt_mask_diff = model.modality_mask(target, modality)
     with torch.no_grad():
         # 3. DACS mix inputs
         mix_mask = draws["mix_mask"].to(dev, torch.float32)
@@ -467,15 +495,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         mixed_img = dacs.strong_transform(mixed_img, draws["jitter"], draws["blur"] if tc.blur else None)
 
         # 4. teacher pseudo-labels (the EMA head in train mode: batch-stat BN,
-        # dropout on, its running statistics updated)
+        # dropout on, its running statistics updated); its attention maps
+        # for target_attention_loss and the concat slot
         t_pl = rev_noise_timestep(draws["t_pl"], step, tc)
-        tch = model.backbone_forward(target, input_modal="others", lora_name=tgt_lora,
-                                     ema_forward=True, timesteps=torch.full((b,), t_pl, device=dev))
+        tch = backbone(target, input_modal="others", lora_name=tgt_lora, ema_forward=True,
+                       timesteps=torch.full((b,), t_pl, device=dev), modality_mask=tgt_mask_diff,
+                       capture_attention=tc.target_attention_loss or concat)
 
         def teacher_label(**kw):
             """An extra teacher pass's argmax through the eval-mode EMA head."""
-            out = model.backbone_forward(target, input_modal="others", lora_name=tgt_lora,
-                                         ema_forward=True, **kw)
+            out = backbone(target, input_modal="others", lora_name=tgt_lora, ema_forward=True,
+                           modality_mask=tgt_mask_diff, **kw)
             logits = model.head_forward(out["output_features"], ema_forward=True)
             return argmax_classes(criterion.resize_logits(logits.float(), hw))
 
@@ -484,7 +514,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         if tc.noise_reg:
             nr_label = teacher_label(timesteps=draws["t_nr"].to(dev))
         ema_logits = model.head_forward(tch["output_features"], ema_forward=True, train=True,
-                                        update_bn=True, dropout=drop_tch)
+                                        update_bn=True, dropout=drop_tch,
+                                        cross_attention_feat=tch.get("cross_attention_feat"))
         ema_sm = torch.softmax(criterion.resize_logits(ema_logits.float(), hw), dim=1)
         pseudo_prob = ema_sm.amax(dim=1)
         pseudo_label = argmax_classes(ema_sm)
@@ -510,6 +541,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             reg_prob = palette.palette_distance_pseudo_label(dec01, class_table)[0]
         else:
             reg_prob = torch.zeros((), device=dev)
+        teacher_maps = list(tch.get("attention_features", {}).values())
         del tch, ema_logits, ema_sm
         if "s" in tc.vae_decoder_loss:
             src_gt_lat, src_valid = _encode_palette(model, gt, table)
@@ -530,26 +562,31 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         losses.update(part)
 
     def target_pass(images, **kw):
-        return model.backbone_forward(images, input_modal="others", lora_name=tgt_lora,
-                                      train=True, **kw)
+        return backbone(images, input_modal="others", lora_name=tgt_lora, train=True,
+                        modality_mask=tgt_mask_diff, **kw)
 
     def slot_loss(out, update_bn=False):
-        """The MIC loss slot: CE of a train-mode head pass against the
-        pseudo-labels, pseudo-weighted."""
+        """The MIC loss slot: CE of a train-mode head pass (the second head
+        where the model has one) against the pseudo-labels, pseudo-weighted."""
         logits = model.head_forward(out["output_features"], train=True, update_bn=update_bn,
-                                    dropout=drop_aux[0])
+                                    dropout=drop_aux[0], use_sec_modal=True)
         return criterion.cross_entropy(logits, pseudo_label, pixel_weight=pseudo_weight)
 
-    # 6. grad pass 1: source
-    out = model.backbone_forward(source, input_modal="rgb", lora_name=src_lora, train=True)
-    logits = model.head_forward(out["output_features"], train=True, update_bn=True, dropout=drop_src)
+    # 6. grad pass 1: source (its maps for fd_attention and the concat slot)
+    src_mask_diff = model.modality_mask(source, "rgb")
+    out = backbone(source, input_modal="rgb", lora_name=src_lora, train=True,
+                   modality_mask=src_mask_diff, capture_attention=bool(tc.fd_attention) or concat)
+    logits = model.head_forward(out["output_features"], train=True, update_bn=True, dropout=drop_src,
+                                cross_attention_feat=out.get("cross_attention_feat"))
     part = {"source_loss": criterion.cross_entropy(logits, gt)}
-    if tc.fd:
+    if tc.fd or tc.fd_attention:  # one loss slot; fd takes precedence (mtmadise.py:533-546)
         with torch.no_grad():
-            ori = model.backbone_forward(source, input_modal="rgb", unet=state.consts["ori_unet"],
-                                         prompt=state.consts["ori_prompt"], features=False)
+            ori = backbone(source, input_modal="rgb", unet=state.consts["ori_unet"],
+                           prompt=state.consts["ori_prompt"], modality_mask=src_mask_diff,
+                           capture_attention=bool(tc.fd_attention) and not tc.fd, features=False)
+        key = "unet_taps" if tc.fd else "up_cross"
         part["feature_distance_loss"] = criterion.feature_distance_loss(
-            out["unet_taps"], ori["unet_taps"], tc.fd)
+            out[key], ori[key], tc.fd or tc.fd_attention)
         del ori
     if "s" in tc.vae_decoder_loss:
         part["vae_decoder_source_loss"] = criterion.vae_decoder_loss(
@@ -559,9 +596,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     del out, logits, part
 
     # 7. grad pass 2: mixed, then the extra student passes of JAX's loss_mix
-    out = model.backbone_forward(mixed_img, input_modal="mixed", lora_name=tgt_lora, train=True,
-                                 latent_noise=draws.get("latent_noise"))
-    logits = model.head_forward(out["output_features"], train=True, update_bn=True, dropout=drop_mix)
+    out = backbone(mixed_img, input_modal="mixed", lora_name=tgt_lora, train=True,
+                   latent_noise=draws.get("latent_noise"),
+                   modality_mask=model.mixed_modality_mask(mix_mask, modality),
+                   capture_attention=concat)
+    logits = model.head_forward(out["output_features"], train=True, update_bn=True, dropout=drop_mix,
+                                use_sec_modal=True, cross_attention_feat=out.get("cross_attention_feat"))
     part = {"target_loss": criterion.cross_entropy(logits, mixed_lbl, pixel_weight=mixed_w)}
     if "t" in tc.vae_decoder_loss:
         part["vae_decoder_target_loss"] = criterion.vae_decoder_loss(
@@ -596,9 +636,17 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     elif tc.prompt_perturbation:
         # the backbone runs without a graph (reference ldm_base.py:920-924);
         # only the head trains
-        out = model.backbone_forward(target, input_modal="others", lora_name=tgt_lora,
-                                     prompt_mode="prompt_perturbation", prompt_draw=draws["prompt"])
+        out = backbone(target, input_modal="others", lora_name=tgt_lora,
+                       prompt_mode="prompt_perturbation", prompt_draw=draws["prompt"],
+                       modality_mask=tgt_mask_diff)
         backward({"masked_prompt_consistency_loss": slot_loss(out)})
+        del out
+    if tc.target_attention_loss:
+        # the student's maps on the target against the teacher's (its pass
+        # above); the loss reads the maps alone, so the pass stops after the UNet
+        out = target_pass(target, capture_attention=True, features=False)
+        backward({"target_attention_loss": criterion.feature_distance_loss(
+            list(out["attention_features"].values()), teacher_maps, 1.0)})
         del out
     if tc.denoise_supervise:
         t_ds = draws["t_ds"].to(dev) + tc.denoise_interval

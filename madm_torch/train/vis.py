@@ -16,9 +16,12 @@ Panels (``mtmadise.py:559-569`` and the conditionals of the shipped branch):
 - masked_image / masked_image_pred (``mic``, ``mic_reg``; ``:572-576``)
 - pl_reg / pl_prob_reg / pl_prob_{pseudo_val} (``reg_uncertain``; ``:599-604``)
 
+- teacher_cross_attn (``attention_features_res`` set): the teacher's maps at
+  its first captured res, averaged over the tokens, overlaid on the target
+  image (JAX ``vis.py:109-110, 207-210``)
+
 The passes take the train step's adapters (``pass_adapters``; JAX
-``vis.py:44-46``).  The attention overlays belong to attention capture,
-which the port has not taken (ROADMAP §A3).
+``vis.py:44-46``), its mask_diff channels and its second head.
 """
 
 from __future__ import annotations
@@ -47,8 +50,14 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
         dec = model.vae.decode(eps.to(model.vae.quant_conv.weight.dtype)).clamp(-1.0, 1.0)
         return (dec.float().permute(0, 2, 3, 1) + 1) / 2
 
+    want_attn = bool(cfg.attention_features_res)
+    concat = cfg.concat_attention_to_conv_seg
+
     def logits_at(out, hw, **kw) -> torch.Tensor:
-        lg = model.head_forward(out["output_features"], **kw)
+        """A pass's eval-mode head logits at ``hw``, NHWC fp32 (the concat
+        slot filled from the pass's maps)."""
+        lg = model.head_forward(out["output_features"], cross_attention_feat=out.get("cross_attention_feat"),
+                                **kw)
         return criterion.resize_logits(lg.float(), hw).permute(0, 2, 3, 1)
 
     @torch.no_grad()
@@ -66,8 +75,10 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
                                         "target_sec_modal": target, "mixup_modal": mixed_img}
 
         # teacher pseudo-label pass (eval-mode head)
+        tgt_mask_diff = model.modality_mask(target, cfg.target_modality)
         tch = model.backbone_forward(target, input_modal="others", lora_name=tgt_lora,
-                                     ema_forward=True, timesteps=torch.full((b,), t_pl, device=dev))
+                                     ema_forward=True, timesteps=torch.full((b,), t_pl, device=dev),
+                                     modality_mask=tgt_mask_diff, capture_attention=want_attn)
         ema_logits = logits_at(tch, target.shape[1:3], ema_forward=True)
         out["target_sec_modal_pl"] = ema_logits
         ema_sm = torch.softmax(ema_logits, dim=-1)
@@ -75,15 +86,21 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
         out["pl_prob"] = pseudo_prob
         out["pseudo_val"] = (pseudo_prob >= tc.pseudo_threshold).float().mean()
         out["mixup_label"] = dacs.one_mix(mix_mask, gt.float(), pseudo_label.float()).long()
+        if want_attn:  # first captured res's maps, averaged over the tokens -> [B, h, w]
+            out["attention_map"] = next(iter(tch["attention_features"].values())).mean(dim=-1)
 
         # student source and mixed prediction panels
-        src = model.backbone_forward(source, input_modal="rgb", lora_name=src_lora)
+        src = model.backbone_forward(source, input_modal="rgb", lora_name=src_lora,
+                                     modality_mask=model.modality_mask(source, "rgb"),
+                                     capture_attention=concat)
         out["source_pred"] = logits_at(src, source.shape[1:3])
         if "s" in tc.vae_decoder_loss and cfg.use_s0:
             out["source_vae_decoder_out"] = decoded01(src["before_vae_decoder"])
         mix = model.backbone_forward(mixed_img, input_modal="mixed", lora_name=tgt_lora,
-                                     latent_noise=draws.get("latent_noise"))
-        out["mixup_pred"] = logits_at(mix, mixed_img.shape[1:3])
+                                     latent_noise=draws.get("latent_noise"),
+                                     modality_mask=model.mixed_modality_mask(mix_mask, cfg.target_modality),
+                                     capture_attention=concat)
+        out["mixup_pred"] = logits_at(mix, mixed_img.shape[1:3], use_sec_modal=True)
         if "t" in tc.vae_decoder_loss and cfg.use_s0:
             out["target_vae_decoder_out"] = decoded01(mix["before_vae_decoder"])
 
@@ -94,8 +111,9 @@ def make_vis_fn(model: MADM, tc: TrainConfig) -> Callable[..., Dict[str, np.ndar
             masked = dacs.mask_image(masked, draws["mic_mask"], tc.mask_ratio)
             out["masked_image"] = masked
             if tc.mic:
-                mic = model.backbone_forward(masked, input_modal="others", lora_name=tgt_lora)
-                out["masked_image_pred"] = logits_at(mic, target.shape[1:3])
+                mic = model.backbone_forward(masked, input_modal="others", lora_name=tgt_lora,
+                                             modality_mask=tgt_mask_diff)
+                out["masked_image_pred"] = logits_at(mic, target.shape[1:3], use_sec_modal=True)
 
         # reg_uncertain palette-distance panels
         if tc.reg_uncertain and cfg.use_s0:
@@ -144,4 +162,7 @@ def build_vis_data(host: Dict[str, np.ndarray], tc: TrainConfig, iteration: int)
         vis.append(p("logits", "pl_reg", "pl_reg"))
         vis.append(p("heatmap", "pl_prob_reg", "pl_prob_reg"))
         vis.append({"data_type": "heatmap", "info": f"pl_prob_{pv:.3f}", "data": np.asarray(host["pl_prob"])})
+    if "attention_map" in host:
+        vis.append({"data_type": "attention_maps", "info": "teacher_cross_attn",
+                    "data": np.asarray(host["attention_map"]), "image": np.asarray(host["target_sec_modal"])})
     return vis

@@ -2,7 +2,7 @@
 reference ``utils/visualization.py`` + ``cmdise.py:238-305`` training-vis grids).
 
 Host-side only: palette colorization and a grid of images, colorized
-predictions and labels, and heatmaps, saved as the per-iteration PNG the
+predictions and labels, heatmaps and attention overlays, saved as the per-iteration PNG the
 reference writes every ``vis_period``.  The grid is drawn with PIL (the
 JAX package draws it with matplotlib, which the GPU machine lacks): one cell
 per panel, its title above it, one row block per sample.
@@ -37,9 +37,29 @@ def jet(x: np.ndarray) -> np.ndarray:
     values' range (the reference's cv2.COLORMAP_JET heatmaps)."""
     x = np.asarray(x, np.float32)
     span = float(x.max() - x.min())
-    t = (x - x.min()) / (span if span > 0 else 1.0)
-    rgb = np.clip(1.5 - np.abs(4.0 * t[..., None] - np.array([3.0, 2.0, 1.0], np.float32)), 0, 1)
-    return (rgb * 255).astype(np.uint8)
+    return (_jet01((x - x.min()) / (span if span > 0 else 1.0)) * 255).astype(np.uint8)
+
+
+def _jet01(t: np.ndarray) -> np.ndarray:
+    """[...] values in [0, 1] -> [..., 3] float jet colours in [0, 1]."""
+    return np.clip(1.5 - np.abs(4.0 * t[..., None] - np.array([3.0, 2.0, 1.0], np.float32)), 0, 1)
+
+
+def attention_overlay(attn: np.ndarray, image: np.ndarray) -> np.ndarray:
+    """A jet heatmap of ``attn`` [h, w] (bilinearly resized, clipped to
+    [0, 1]) added to ``image`` [H, W, 3] (min-max normalised) and scaled by
+    the sum's maximum (JAX ``attention_overlay``; reference
+    ``show_cam_on_image``).  Returns [H, W, 3] float in [0, 1]."""
+    from PIL import Image
+
+    h, w = image.shape[:2]
+    a = np.asarray(Image.fromarray(np.asarray(attn, np.float32)).resize((w, h), Image.BILINEAR),
+                   np.float32)
+    img = np.asarray(image, np.float32)
+    span = float(img.max() - img.min())
+    img = (img - img.min()) / (span if span > 0 else 1.0)
+    cam = _jet01(np.clip(a, 0.0, 1.0)) + img
+    return cam / max(float(cam.max()), 1e-6)
 
 
 def _panel(item: Dict, j: int, palette: Sequence[int]) -> np.ndarray:
@@ -53,7 +73,10 @@ def _panel(item: Dict, j: int, palette: Sequence[int]) -> np.ndarray:
         return colorize_mask(d.astype(np.int32), palette)
     if kind == "heatmap":
         return jet(d)
-    raise ValueError(f"vis panel type {kind!r} is not one of image, logits, label, heatmap")
+    if kind == "attention_maps":
+        return (attention_overlay(d, np.asarray(item["image"][j])) * 255).astype(np.uint8)
+    raise ValueError(f"vis panel type {kind!r} is not one of image, logits, label, heatmap, "
+                     "attention_maps")
 
 
 def save_vis_grid(
@@ -66,8 +89,9 @@ def save_vis_grid(
 ) -> Optional[str]:
     """Save a prediction grid like the reference's ``vis_results``.
 
-    vis_data entries: {'data_type': 'image'|'logits'|'label'|'heatmap',
-    'info': str, 'data': np [B,H,W,C] / [B,H,W]}.  Returns the written path
+    vis_data entries: {'data_type': 'image'|'logits'|'label'|'heatmap'|
+    'attention_maps', 'info': str, 'data': np [B,H,W,C] / [B,H,W]};
+    'attention_maps' entries also carry 'image' [B,H,W,3] to overlay onto.  Returns the written path
     (``<save_path>/vis_results/<iter:06d>_rank<rank>.png``)."""
     from PIL import Image, ImageDraw
 

@@ -105,7 +105,17 @@ PORTED_FLAGS = [
     ["--merge_more_target_data", "extra"], ["--finetune_without_cross_attention"], ["--finetune_no"],
     ["--add_latent_noise", "0.2"], ["--norm_latent_noise"], ["--ema_w_unet"], ["--unet_lr", "1e-5"],
     ["--warmup_lr"], ["--vae_decoder_loss_type", "L2"],
+    # the model variants (the concat slot with the capture that it needs)
+    ["--enable_sem_seg_head_sec_modal"], ["--slide_training"], ["--final_fuse_vae_decoder_feat"],
+    ["--without_prompt"], ["--without_prompt_alpha"], ["--multi_layer_prompt"], ["--target_attention_loss"],
+    ["--attention_select_index", *map(str, range(1, 12))], ["--FD_attention", "0.5"],
+    ["--concat_corss_attention_feat_to_conv_seg", "--target_attention_loss", "--attention_select_index",
+     *map(str, range(1, 12))],
+    ["--without_vae_encoder_feat"], ["--baseline_wo_encoder_feat"], ["--single_scale_decoder"],
+    ["--concat_pixel_shuffle"], ["--mask_diff", "rgb=0_Depth=1"],
 ]
+# the toy widths of tests/test_torch_cli.py's overrides, a scale each
+TOY_FEATURE_DIMS = {"s0": 3, "s3": 32, "s4": 64, "s5": 128}
 
 
 def _flat(node, prefix=""):
@@ -140,10 +150,17 @@ def test_ported_flag_changes_the_config_as_jax(flag, data_root):
     assert port and port == ref
     cfg = port_main.apply_cli_mutations(LazyConfig.load(_config("port", "depth_11")),
                                         port_parser.parse_args(["--config-file", "x", *flag]))
-    cfg = LazyConfig.apply_overrides(cfg, overrides(data_root))
+    # the toy widths of the scales the flags leave (the scale rewrites drop some)
+    scales = list(cfg.model.out_features)
+    toy = [o for o in overrides(data_root) if not o.startswith(("model.feature_dims", "model.projection_dim"))]
+    toy += [f"model.feature_dims={[TOY_FEATURE_DIMS[k] for k in scales]}",
+            f"model.projection_dim={[32] * len(scales)}"]
+    cfg = LazyConfig.apply_overrides(cfg, toy)
     model = instantiate(dict(cfg.model, device="cpu"))
     tc = build_train_config(cfg)
     for key, value in port.items():
+        if key in ("model.feature_dims", "model.projection_dim"):  # the toy widths replace them
+            continue
         node, _, name = key.rpartition(".")
         if node == "model" and hasattr(model.cfg, name):
             assert getattr(model.cfg, name) == (tuple(value) if isinstance(value, list) else value), key

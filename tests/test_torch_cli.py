@@ -31,6 +31,7 @@ from madm_torch.config import LazyConfig, instantiate
 from madm_torch.data import CrossModalityDataset, TrainLoader, get_rcs_class_probs
 from madm_torch.data import TestLoader as PortTestLoader
 from madm_torch.evaluation.evaluator import DSECSemSegEvaluator
+from madm_torch import main as port_main
 from madm_torch.main import main
 from madm_torch.models.madm import MADMConfig
 from madm_torch.parallel import dist as dist_lib
@@ -141,6 +142,42 @@ def test_built_model_and_train_config_equal_jax(name, data_root):
     package's MADMConfig fields and TrainConfig values."""
     port = LazyConfig.apply_overrides(LazyConfig.load(_config("port", name)), overrides(data_root))
     ref = JaxLazyConfig.apply_overrides(JaxLazyConfig.load(_config("jax", name)), overrides(data_root))
+    _assert_built_equal(port, ref)
+
+
+# the model-variant flags (one case each) that the CLI once refused
+VARIANT_FLAGS = [["--FD_attention", "1.0"], ["--concat_pixel_shuffle"], ["--mask_diff", "rgb=0_Depth=1"],
+                 ["--slide_training"], ["--multi_layer_prompt"], ["--target_attention_loss"]]
+
+
+@pytest.mark.parametrize("flag", VARIANT_FLAGS, ids=lambda f: f[0])
+def test_variant_flag_builds_the_model_and_train_config_of_jax(flag, data_root):
+    """The flag through each launcher's ``apply_cli_mutations`` (JAX
+    ``main.py``'s defaults included: res (16, 32) at 'up' for the attention
+    consumers, ``input_channel_plus=1`` for mask_diff), then build_madm and
+    build_train_config: the JAX package's MADMConfig fields and TrainConfig
+    values."""
+    import main as jax_main
+
+    argv = ["--config-file", "x", "--output", "out", *flag]
+    port = port_main.apply_cli_mutations(LazyConfig.load(_config("port", "depth_11")),
+                                         port_main.build_parser().parse_args(argv))
+    ref = jax_main.apply_cli_mutations(JaxLazyConfig.load(_config("jax", "depth_11")),
+                                       jax_main.build_parser().parse_args(argv))
+    port = LazyConfig.apply_overrides(port, overrides(data_root))
+    ref = JaxLazyConfig.apply_overrides(ref, overrides(data_root))
+    model = _assert_built_equal(port, ref)
+    changed = {"--FD_attention": ("fd_attention", 1.0), "--concat_pixel_shuffle": ("unet_in_channels", 68),
+               "--mask_diff": ("input_channel_plus", 1), "--slide_training": ("slide_training", True),
+               "--multi_layer_prompt": ("multi_layer_prompt", True),
+               "--target_attention_loss": ("attention_features_res", (16, 32))}[flag[0]]
+    assert getattr(model.cfg, changed[0]) == changed[1]
+
+
+def _assert_built_equal(port, ref):
+    """build_madm and build_train_config of the port's tree against the JAX
+    package's of ``ref``: every MADMConfig field and TrainConfig value;
+    returns the port's model."""
     node = dict(port.model, device="cpu")
     model = instantiate(node)
     jmodel = jax_instantiate(ref.model)
@@ -163,17 +200,16 @@ def test_built_model_and_train_config_equal_jax(name, data_root):
     assert (tc.optimizer, tc.b1, tc.b2, tc.eps, tc.mu_dtype) == (
         opt.get("name", "adamw"), None if opt.get("no_momentum") else opt.get("betas", (0.9, 0.999))[0],
         opt.get("betas", (0.9, 0.999))[1], opt.get("eps", 1e-8), opt.get("mu_dtype"))
+    return model
 
 
 def test_unported_config_values_raise(data_root):
     port = LazyConfig.load(_config("port", "depth_11"))
-    for ov, what in ((["model.input_channel_plus=1"], "input_channel_plus"),
-                     (["model.fd_attention=1.0"], "fd_attention"),
-                     (["model.head_fusion='isa'"], "head_fusion")):
-        cfg = LazyConfig.apply_overrides(LazyConfig.load(_config("port", "depth_11")), ov + overrides(data_root))
-        with pytest.raises(NotImplementedError, match=what):
+    for value in ("'learnable_clip'", "'no_learnable_clip'"):
+        cfg = LazyConfig.apply_overrides(LazyConfig.load(_config("port", "depth_11")),
+                                         [f"model.clip_state={value}"] + overrides(data_root))
+        with pytest.raises(NotImplementedError, match="clip_state"):
             instantiate(dict(cfg.model, device="cpu"))
-            build_train_config(cfg)
     with pytest.raises(ValueError, match="unknown config keys"):
         instantiate(dict(port.model, device="cpu", not_a_knob=1))
 
@@ -389,9 +425,7 @@ def test_cli_eval_only_reproduces_the_training_eval(cli_run, data_root, tmp_path
                                                          if k.startswith("eval/")}
 
 
-@pytest.mark.parametrize("flag", [["--FD_attention", "1.0"], ["--concat_pixel_shuffle"], ["--mask_diff", "x"],
-                                  ["--with_clip", "learnable_clip"], ["--slide_training"],
-                                  ["--multi_layer_prompt"], ["--target_attention_loss"]])
+@pytest.mark.parametrize("flag", [["--with_clip", "learnable_clip"]])
 def test_cli_refuses_unported_flags(flag, data_root, tmp_path):
     argv = cli_argv(data_root, tmp_path)
     ins = argv.index("--output")

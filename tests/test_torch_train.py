@@ -9,8 +9,10 @@ on the test's own object) is compiled once and takes one step; the port takes
 the same step with the DACS mask the JAX step drew.  The head's conv_seg is
 scaled up so that the teacher is confident on part of the image and the
 pseudo-weighted terms are not zero.  Also here: the train-mode head alone,
-the flags still unported, each ported ablation flag's branch running on the
-port's own toy step, and the draws' determinism.
+each ported ablation flag's branch running on the port's own toy step, and
+the draws' determinism.  The model variants' step branches are held to JAX
+in ``tests/test_torch_variant_step_*.py`` and
+``tests/test_torch_attention_capture.py``.
 """
 
 import copy
@@ -208,19 +210,6 @@ def test_train_mode_head_matches_jax():
             np.testing.assert_allclose(v.numpy(), new["sem_seg_head." + k].numpy(), atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag,value", [("fd_attention", 1.0), ("target_attention_loss", True)])
-def test_unported_train_flags_raise(flag, value):
-    assert flag in ts._UNPORTED
-    with pytest.raises(NotImplementedError, match=flag):
-        TrainConfig(**{flag: value})
-
-
-@pytest.mark.parametrize("flag,value", [("slide_training", True)])
-def test_unported_model_flags_raise(flag, value):
-    with pytest.raises(NotImplementedError, match=flag):
-        MADMConfig(**{flag: value})
-
-
 # --------------------------------------- each ported flag's branch runs
 RUN_STEP = 2500  # half way to rev_noise_end_iter: the teacher's t is 30, not 60 or 0
 
@@ -304,7 +293,6 @@ def test_ported_train_flags_run(flag_base, flag):
     runs: the step shows its loss, or a metric the branch moves."""
     model, batch, base = flag_base
     tc_kw, model_kw, shows = PORTED_FLAGS[flag]
-    assert flag not in ts._UNPORTED
     out, _ = _flag_step(model, batch, tc_kw, model_kw)
     assert all(np.isfinite(v) for v in out.values())
     if isinstance(shows, str):

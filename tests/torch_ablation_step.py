@@ -9,9 +9,11 @@ The port takes every random value the JAX step drew from
 ``jax.random.split(rng, 15)``: the DACS mask, the teacher, denoise and
 noise-reg timesteps (drawn from a range here), the MIC block scores, the
 latent noise, the prompt ablations' values and the random_choice uniform.
-Colour jitter (p = 1) and blur stay off, as in that test.  With ``fd`` the
-student's UNet and prompt are perturbed after the baseline is taken, so that
-the feature distance and its gradient are not zero.  The checks hold the
+Colour jitter (p = 1) and blur stay off, as in that test.  With ``fd`` or
+``fd_attention`` the student's UNet and prompt are perturbed after the
+baseline is taken, so that the feature distance and its gradient are not
+zero.  ``tests/test_torch_variant_step_*.py`` run the model variants
+through the same recipe.  The checks hold the
 port to ``tests/test_torch_train.py``'s tolerances.
 """
 
@@ -27,13 +29,13 @@ from madm_tpu.train import TrainConfig as JaxTrainConfig
 from madm_tpu.train import make_optimizer, make_train_state, make_train_step, split_trainable
 from madm_tpu.train.train_step import add_feature_distance_baseline as jax_add_baseline
 from madm_torch.checkpoint.from_jax import state_dict_from_jax
-from madm_torch.models.madm import MADM, MADMConfig, trainable_parameters
+from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.ops import dacs, palette
 from madm_torch.train.train_step import TrainConfig, add_feature_distance_baseline, make_train_state as port_state
 from madm_torch.train.train_step import train_step
 from test_torch_lora import _nonzero_b
 from test_torch_train import ADAM_EPS, GRAD_ATOL_OF_MAX, GRAD_L2_RTOL, LR, RTOL, SEG_SCALE, _batch
-from torch_port_toy import TOY
+from torch_port_toy import TOY, jax_variables
 
 STEP_KW = dict(color_jitter_probability=1.0, blur=False, denoise_timestep_range=(50, 70))
 # relative N(0, 1) noise on the student's UNet and prompt under fd, so that
@@ -78,15 +80,24 @@ def jax_draws(rng, labels, seq_len, tc):
     }
 
 
-def run_group(model_kw, tc_kw, lora=(), unet_lr=None):
+def run_group(model_kw, tc_kw, lora=(), unet_lr=None, jax_init=True):
     """One step of each package with the ablation settings ``model_kw``
     (MADMConfig fields, the same names in both) and ``tc_kw`` (TrainConfig
-    fields); returns what the checks below read."""
+    fields); returns what the checks below read.  ``jax_init=False`` starts
+    from the port's seeded weights through the JAX converter
+    (``torch_port_toy.jax_variables``) instead of a flax init, ~70 s less."""
     jm = JaxMADM(JaxMADMConfig(**TOY, compute_dtype=jnp.float32, lora_configs=lora,
                                target_modality="Depth", train_palette=palette.DELIVER_11_PALETTE,
                                **model_kw))
     jm.head = jm.head.clone(dropout_ratio=0.0)
-    variables = jm.init_params(jax.random.PRNGKey(0))
+    if jax_init:
+        variables = jm.init_params(jax.random.PRNGKey(0))
+    else:
+        seeded = init_random_(MADM(MADMConfig(**TOY, compute_dtype=torch.float32, **model_kw), device="cpu"),
+                              torch.Generator().manual_seed(0))
+        variables = jax_variables(seeded)
+        variables["params"]["lora"] = {}
+        variables["state"]["ema_head_bn"] = variables["state"]["head_bn"]
     params = variables["params"]
     conv_seg = dict(params["head"]["conv_seg"], kernel=params["head"]["conv_seg"]["kernel"] * SEG_SCALE)
     params = dict(params, head=dict(params["head"], conv_seg=conv_seg))
@@ -102,7 +113,7 @@ def run_group(model_kw, tc_kw, lora=(), unet_lr=None):
     trainable, _ = split_trainable(variables, jm.cfg.finetune_unet)
     tx = make_optimizer(trainable, base_lr=LR, max_iter=tc.max_iter, unet_lr=unet_lr)
     state = make_train_state(jm, variables, tx)
-    if tc.fd:
+    if tc.fd or tc.fd_attention:
         state = jax_add_baseline(state)
         state = state.replace(params=dict(state.params, unet=_perturbed(state.params["unet"], 1),
                                           prompt=_perturbed(state.params["prompt"], 2)))
@@ -124,14 +135,15 @@ def run_group(model_kw, tc_kw, lora=(), unet_lr=None):
     before = {k: v.clone() for k, v in model.state_dict().items()}
     ptc = TrainConfig(lr=LR, unet_lr=unet_lr, **STEP_KW, **tc_kw)
     pstate = port_state(model, ptc)
-    if ptc.fd:
+    if ptc.fd or ptc.fd_attention:
         add_feature_distance_baseline(pstate)
         ori = state_dict_from_jax({"params": {"unet": state.consts["ori_unet"],
                                               "prompt": state.consts["ori_prompt"]}})
         for name, prefix in (("ori_unet", "unet."), ("ori_prompt", "prompt.")):
             pstate.consts[name].load_state_dict(
                 {k[len(prefix):]: v for k, v in ori.items() if k.startswith(prefix)}, strict=True)
-    draws = jax_draws(rng, batch["source_label"], model.prompt["clip_project_rgb"].prompt_embed.shape[1], ptc)
+    seq_len = model.cfg.prompt_seq_len or 77
+    draws = jax_draws(rng, batch["source_label"], seq_len, ptc)
     port_metrics = train_step(pstate, {k: torch.from_numpy(v) for k, v in batch.items()}, draws=draws)
     grads = {n: pstate.optimizer.state[p]["exp_avg"] / 0.1 for n, p in model.named_parameters()
              if p.requires_grad}
