@@ -116,6 +116,17 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    the concat slot ('none'), and of the second head in 'aspp' and 'full':
    ids, launches, ms/crop; (d) a captured cross-attention layer against K1
    at Sq 1024 and 256; (e) a slide_training step at [1, 512, 1024, 3].
+14. the CLIP image prefix (``clip_state``, ROADMAP §A4): (a) phase 4's and
+   phase 6's checks on the toy model with a narrow tower (image 32, patch
+   8, width 64, 2 layers) in front of its prompt: an eval pass under
+   'no_learnable_clip' and 'learnable_clip', and two 'learnable_clip'
+   steps, CUDA against CPU; (b) the ViT-L/14-336 tower (336 px, patch 14,
+   width 1024, 24 layers, 16 heads, MLP 4096, out 768) in front of the
+   flagship model in bf16 on seeded weights: 'aspp' eval passes at B=1 and
+   B=2 under each state (K1 34, K2 1, as without the tower, which launches
+   no kernel), then one 'learnable_clip' step at B=1 after a warm-up (K1
+   104, K3 64; every trained tensor, the tower's included, with a finite
+   gradient not all zero): ms, peak memory.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -149,6 +160,7 @@ from madm_torch.checkpoint import (
 )
 from madm_torch.device import card_line
 from madm_torch.evaluation import DSECSemSegEvaluator, inference_on_dataset, make_slide_eval_fn
+from madm_torch.models.clip_image import VisionConfig
 from madm_torch.models.clip_text import CLIPTextTransformer, compute_uncond_inputs
 from madm_torch.models.daformer import argmax_classes
 from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
@@ -726,11 +738,11 @@ TOY = MADMConfig(num_classes=11, crop_size=(64, 64), unet_channels=(32, 64, 128,
                  projection_dim=(32, 32, 32, 32), compute_dtype=torch.float32)
 
 
-def check_toy():
+def check_toy(cfg=TOY):
     """The toy fp32 model on CUDA (kernels) against CPU (twins): logits, and
     ids in each kernel eval head, each pass with its launch counts."""
-    cpu = init_random_(MADM(TOY, device="cpu"), torch.Generator().manual_seed(SEED))
-    gpu = MADM(TOY, device="cuda")
+    cpu = init_random_(MADM(cfg, device="cpu"), torch.Generator().manual_seed(SEED))
+    gpu = MADM(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     images = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(SEED + 1))
     reset_counts()
@@ -742,7 +754,7 @@ def check_toy():
     tol = 1e-3 * max(1.0, lg_cpu.abs().max().item())  # fp32, other summation orders
     top2 = lg_cpu.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
-    log(f"toy fp32 CUDA vs CPU: logits max_abs_err={err:.3e} (tol {tol:.3e})")
+    log(f"toy fp32 CUDA vs CPU (clip_state {cfg.clip_state!r}): logits max_abs_err={err:.3e} (tol {tol:.3e})")
     if not err <= tol:
         raise AssertionError("toy-width CUDA logits disagree with the CPU twins")
     for mode, expected in EVAL_LAUNCHES.items():
@@ -2456,6 +2468,80 @@ def run_slide_training(card):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 14
+# tests/test_fused_head.py's narrow tower for the toy model
+TOY_CLIP = VisionConfig(image_size=32, patch_size=8, width=64, layers=2, heads=4, mlp_dim=128, out_dim=48)
+CLIP_STATES = ("no_learnable_clip", "learnable_clip")
+
+
+def check_clip_toy():
+    """Phase 14 (a): phase 4's eval checks under each clip state and phase
+    6's two train steps under 'learnable_clip', on the toy model with the
+    narrow tower, CUDA against CPU in fp32."""
+    for state in CLIP_STATES:
+        check_toy(dataclasses.replace(TOY, clip_state=state, clip_vision=TOY_CLIP))
+    check_toy_train(dataclasses.replace(TOY, clip_state="learnable_clip", clip_vision=TOY_CLIP))
+
+
+def run_clip_eval(card):
+    """Phase 14 (b), eval: the flagship model behind the ViT-L/14-336 tower
+    in bf16, 'aspp' passes at B=1 and B=2 under each clip state: ids in
+    range, launches as without the tower, ms/crop, peak memory."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    images = {b: torch.rand(b, 512, 512, 3, device="cuda", generator=gen) for b in (1, 2)}
+    rows = {}
+    for state in CLIP_STATES:
+        model = init_random_(MADM(MADMConfig(clip_state=state), device="cuda"),
+                             torch.Generator(device="cuda").manual_seed(SEED))
+        tower = sum(p.numel() for p in model.clip_vision.parameters())
+        for b, x in images.items():
+            model.eval_forward_ids(x, eval_head="aspp")  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            ids = model.eval_forward_ids(x, eval_head="aspp")
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            check_ids(ids, (b, 512, 512), model.cfg.num_classes)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: model.eval_forward_ids(x, eval_head="aspp"), reps=3, warmup=0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rows[state, b] = dict(ms_per_crop=ms / b, launches=launches, peak_gib=peak)
+            log(f"phase 14 full-width eval clip_state '{state}' 'aspp' B={b}: tower {tower / 1e6:.1f} M "
+                f"parameters; launches {launches} (expected {EVAL_LAUNCHES['aspp']}); {ms / b:.2f} ms/crop "
+                f"({ms:.2f} ms/pass), peak memory {peak:.2f} GiB [{card}]")
+            if launches != EVAL_LAUNCHES["aspp"]:
+                raise AssertionError(f"phase 14 eval '{state}' B={b} launched {launches}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_tower_grads(state):
+    """The tower's trained tensors: each gradient finite and not all zero;
+    the teacher holds an EMA copy of it."""
+    model = state.model
+    grads = {n: p.grad for n, p in model.clip_vision.named_parameters()}
+    faults = [n for n, g in grads.items() if g is None or not torch.isfinite(g).all() or not g.any()]
+    gmax = max(g.abs().max().item() for g in grads.values() if g is not None)
+    ema = sum(p.numel() for p in model.ema["clip_vision"].parameters())
+    log(f"phase 14 tower gradients: {len(grads) - len(faults)} of {len(grads)} tensors finite and not all "
+        f"zero, largest |g| {gmax:.3e}; EMA copy {ema / 1e6:.1f} M parameters")
+    if faults:
+        raise AssertionError(f"phase 14 tower gradients {faults[:10]}")
+
+
+def run_clip_full(card):
+    """Phase 14 (b): ``run_clip_eval``, then one 'learnable_clip' step at
+    B=1 (``run_group_full``'s checks, K1 104 and K3 64) with the tower's
+    gradients checked."""
+    rows = run_clip_eval(card)
+    rows["learnable_clip", "step"] = run_group_full(
+        "14", "learnable_clip", dict(clip_state="learnable_clip"), {}, (),
+        lambda cfg, tc: derived_launches(tc), card, keep=check_tower_grads)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -2544,6 +2630,12 @@ def main() -> int:
     check_capture_layers(gen)
     run_slide_training(card)
     phase_done("13 (d, e) (captured layers against K1, slide_training)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_clip_toy()
+    phase_done("14 (a) (the CLIP prefix's toy model, CUDA against CPU)")
+    run_clip_full(card)
+    phase_done("14 (b) (the ViT-L/14-336 prefix at full width)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)

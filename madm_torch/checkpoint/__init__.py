@@ -1,12 +1,14 @@
 """Checkpoints: save/resume of the train state (``checkpointer``), the
-weight loaders of SD-v1.4 snapshots and released MADM ``.pth`` files
-(``converter``), and weight conversion from the JAX package's tree
+weight loaders of SD-v1.4 snapshots, released MADM ``.pth`` files and HF
+CLIP vision towers (``converter``), and weight conversion from the JAX package's tree
 (``from_jax``)."""
 
 from .checkpointer import BestCheckpointer, Checkpointer, PeriodicCheckpointer, load_checkpoint
 from .converter import (
+    convert_clip_vision_state,
     expand_conv_in,
     convert_madm_pth,
+    load_clip_vision,
     load_safetensors,
     load_sd_snapshot,
     load_torch_file,
@@ -21,9 +23,11 @@ __all__ = [
     "BestCheckpointer",
     "Checkpointer",
     "PeriodicCheckpointer",
+    "convert_clip_vision_state",
     "convert_madm_pth",
     "expand_conv_in",
     "load_checkpoint",
+    "load_clip_vision",
     "load_safetensors",
     "load_sd_snapshot",
     "load_torch_file",

@@ -9,7 +9,11 @@ Two families of files (SURVEY.md §7):
     (``ldm_diffusers.py:246-266``);
 (b) a released MADM ``.pth``: the trained subset and the EMA teacher; the
     frozen VAE is not in it and comes from the snapshot (the ignored-keys
-    contract of ``odise_checkpointer.py:45-102``).
+    contract of ``odise_checkpointer.py:45-102``);
+
+and the CLIP image tower of ``clip_state`` from an HF
+``CLIPVisionModel(WithProjection)`` state dict (``convert_clip_vision_state``,
+``load_clip_vision``).
 
 The port keeps diffusers' and the reference's key names, so where the JAX
 converter transposes layouts and renames leaves, this one rewrites key
@@ -40,11 +44,14 @@ import logging
 import os
 import re
 import struct
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..device import resolve_device
+from ..models.clip_image import CLIPVisionTransformer, VisionConfig
 
 logger = logging.getLogger(__name__)
 
@@ -173,6 +180,44 @@ def snapshot_state_dict(snapshot: Mapping[str, Mapping[str, torch.Tensor]]) -> D
     """The VAE and UNet of ``load_sd_snapshot``'s result under ``MADM``'s
     keys (``vae.*``, ``unet.*``), for ``merge_into_model``."""
     return {f"{part}.{k}": v for part in ("vae", "unet") for k, v in snapshot[part].items()}
+
+
+# ------------------------------------------------------------ CLIP vision
+
+def convert_clip_vision_state(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An HF ``CLIPVisionModel(WithProjection)`` state dict -> the port's
+    ``CLIPVisionTransformer`` names (JAX ``convert_clip_vision_state``):
+    ``vision_model.`` dropped, HF's ``pre_layrnorm`` kept (``pre_layernorm``
+    read as it), ``visual_projection.weight`` kept, ``position_ids`` and
+    anything outside the tower left out."""
+    out = {}
+    for key, w in sd.items():
+        key = key.removeprefix("vision_model.")
+        if key.startswith("pre_layernorm."):
+            key = "pre_layrnorm." + key[len("pre_layernorm."):]
+        if key.startswith(("embeddings.class_embedding", "embeddings.patch_embedding.",
+                           "embeddings.position_embedding.", "pre_layrnorm.", "encoder.layers.",
+                           "post_layernorm.", "visual_projection.")):
+            out[key] = torch.as_tensor(w)
+    return out
+
+
+def load_clip_vision(sd: Mapping[str, torch.Tensor], device: str | torch.device = "cuda",
+                     heads: Optional[int] = None) -> CLIPVisionTransformer:
+    """An fp32 ``CLIPVisionTransformer`` on ``device`` holding ``sd`` (HF
+    names), its shape read from the tensors' but for ``heads``, which they
+    do not hold (default width / 64, as every released CLIP tower)."""
+    state = convert_clip_vision_state(sd)
+    width, _, patch, _ = state["embeddings.patch_embedding.weight"].shape
+    grid = int(round((state["embeddings.position_embedding.weight"].shape[0] - 1) ** 0.5))
+    layers = 1 + max(int(m.group(1)) for k in state if (m := re.match(r"encoder\.layers\.(\d+)\.", k)))
+    cfg = VisionConfig(image_size=grid * patch, patch_size=patch, width=width, layers=layers,
+                       heads=heads or width // 64, mlp_dim=state["encoder.layers.0.mlp.fc1.weight"].shape[0],
+                       out_dim=state["visual_projection.weight"].shape[0])
+    with torch.device(resolve_device(device)):
+        model = CLIPVisionTransformer(cfg)
+    model.load_state_dict({k: v.float() for k, v in state.items()}, strict=True)
+    return model
 
 
 # ------------------------------------------------------------- MADM .pth

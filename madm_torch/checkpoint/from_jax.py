@@ -7,11 +7,13 @@ and the peft adapters of ``convert_madm_pth``), restricted to the modules the
 port holds, so both packages compute the same function on the same weights.
 Besides ``params`` (the LoRA adapters ``params['lora']`` among them) and
 ``consts`` it carries what a JAX ``TrainState`` adds: the EMA teacher tree
-(``ema``: projections, head, ``clip_project_others``, and ``unet`` and
-``lora`` where an ``ema_w_unet`` state has them) and the BN statistics ``state.head_bn`` and
+(``ema``: projections, head, ``clip_project_others``, ``unet`` and
+``lora`` where an ``ema_w_unet`` state has them, ``clip_vision`` where a
+'learnable_clip' one has it) and the BN statistics ``state.head_bn`` and
 ``state.ema_head_bn``; and the variants' trees: the second head
 (``params.head_sec`` with ``state.head_sec_bn``), the pixel-unshuffle tower,
-the ISA fuse layer and per-layer prompts.  Reads nested dicts of arrays (anything
+the ISA fuse layer, per-layer prompts, the CLIP tower ``params.clip_vision``
+and the prefix prompts' ``PositionalLinear`` lifts.  Reads nested dicts of arrays (anything
 ``numpy.asarray`` takes); imports nothing of the JAX package.
 
 Layout transforms (JAX -> torch):
@@ -125,6 +127,39 @@ def _lora(tree: Dict[str, Any], prefix: str = "lora") -> Dict[str, np.ndarray]:
     return out
 
 
+def _clip_vision(tree: Dict[str, Any], prefix: str = "clip_vision") -> Dict[str, np.ndarray]:
+    """JAX ``CLIPVisionTransformer`` params -> the port's (HF) names."""
+    def rename(p: str) -> str:
+        m = re.fullmatch(r"layers_(\d+)", p)
+        if m:
+            return f"encoder.layers.{m.group(1)}"
+        return {"pre_layernorm": "pre_layrnorm", "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2"}.get(p, p)
+
+    nested = {k: v for k, v in tree.items() if isinstance(v, dict)}
+    out = _module_tree(nested, prefix, rename)
+    out[f"{prefix}.embeddings.class_embedding"] = np.asarray(tree["class_embedding"], np.float32)
+    out[f"{prefix}.embeddings.position_embedding.weight"] = np.asarray(tree["position_embedding"],
+                                                                       np.float32)
+    patch = out.pop(f"{prefix}.patch_embedding.weight")
+    out[f"{prefix}.embeddings.patch_embedding.weight"] = patch
+    return out
+
+
+def _prompt(tree: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """One ``ClipFeatureProject`` set; a prefix lift (``PositionalLinear``:
+    kernel, bias, positional table) goes to ``<name>.linear`` and
+    ``<name>.positional_embedding``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[f"{prefix}.{k}.linear.weight"] = np.asarray(v["kernel"], np.float32).T
+            out[f"{prefix}.{k}.linear.bias"] = np.asarray(v["bias"], np.float32)
+            out[f"{prefix}.{k}.positional_embedding"] = np.asarray(v["positional_embedding"], np.float32)
+        else:
+            out[f"{prefix}.{k}"] = np.asarray(v, np.float32)
+    return out
+
+
 def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """``{'params', 'ema', 'state', 'consts'}`` of the JAX ``MADM`` or its
     ``TrainState`` (or any part of them) -> {key: float32 CPU tensor} for
@@ -141,7 +176,7 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_module_tree(params["unet"], "unet", _diffusers))
     out.update(_lora(params.get("lora", {})))
     for domain, p in params.get("prompt", {}).items():
-        out.update({f"prompt.{domain}.{k}": np.asarray(v, np.float32) for k, v in p.items()})
+        out.update(_prompt(p, f"prompt.{domain}"))
     if "projections" in params:
         out.update(_projections(params["projections"]))
     if "head" in params:
@@ -150,6 +185,8 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_head(params["head_sec"], state.get("head_sec_bn", {}), "sem_seg_head_sec_modal"))
     if "pixel_unshuffle" in params:
         out.update(_module_tree(params["pixel_unshuffle"], "pixel_unshuffle"))
+    if "clip_vision" in params:
+        out.update(_clip_vision(params["clip_vision"]))
     ema = variables.get("ema", {})
     if "projections" in ema:
         out.update(_projections(ema["projections"], "ema.feature_projections"))
@@ -159,8 +196,9 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_module_tree(ema["unet"], "ema.unet", _diffusers))
     out.update(_lora(ema.get("lora", {}), "ema.lora"))
     if "clip_project_others" in ema:
-        out.update({f"ema.clip_project_others.{k}": np.asarray(v, np.float32)
-                    for k, v in ema["clip_project_others"].items()})
+        out.update(_prompt(ema["clip_project_others"], "ema.clip_project_others"))
+    if "clip_vision" in ema:
+        out.update(_clip_vision(ema["clip_vision"], "ema.clip_vision"))
     consts = variables.get("consts", {})
     if "uncond_inputs" in consts:
         out["uncond_inputs"] = np.asarray(consts["uncond_inputs"], np.float32)

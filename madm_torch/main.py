@@ -27,8 +27,9 @@ Differences from the JAX launcher:
   run raises.  Each rank loads; rank 0 alone writes ``config.yaml``,
   ``metrics.json``, the visualisations and the checkpoints.  Under
   ``--num_chips`` the launcher returns None.
-- ``--with_clip`` (§A4), whose branch the port has not taken, raises
-  (``UNPORTED_FLAGS``).  The step's ablation flags (MIC, ``--FD``,
+- Every flag of the JAX launcher is taken.  ``--with_clip`` puts the CLIP
+  image prefix in front of the prompt (``model.clip_state``).  The step's
+  ablation flags (MIC, ``--FD``,
   ``--noise_reg``, ``--denoise_supervise``, the prompt ablations,
   ``--prompt_seq_len``, ``--remove_texture``, ``--remove_amp``,
   ``--merge_with_pl_data``, ...), ``--finetune_*``, ``--ema_w_unet``,
@@ -92,11 +93,6 @@ from .train.train_step import (
 from .utils import CommonMetricPrinter, EventStorage, JSONWriter, WriterStack
 
 logger = logging.getLogger("madm_torch")
-
-# flags whose branch the port has not taken, each with the ROADMAP section
-# that queues it: set to anything but the parser's default, each raises
-# NotImplementedError naming it
-UNPORTED_FLAGS = {"--with_clip": "§A4"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -204,19 +200,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args, parser: argparse.ArgumentParser) -> None:
-    """Raise NotImplementedError naming the first flag that reaches a branch
-    the port has not taken; such flags are never ignored."""
-    by_flag = {a.option_strings[0]: a.dest for a in parser._actions if a.option_strings}
-    for flag, section in UNPORTED_FLAGS.items():
-        dest = by_flag[flag]
-        if getattr(args, dest) != parser.get_default(dest):
-            raise NotImplementedError(f"{flag} is not ported to madm_torch yet (ROADMAP {section})")
-
-
 def apply_cli_mutations(cfg, args):
-    """The reference's imperative flag->cfg layer (``main.py:356-692``), for
-    the flags the port takes (``refuse_unported`` stops the others first)."""
+    """The reference's imperative flag->cfg layer (``main.py:356-692``)."""
     if args.debug:
         cfg.train.checkpointer["period"] = 5
         cfg.train.eval_period = 5
@@ -624,7 +609,6 @@ def main(argv=None):
     parser = build_parser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    refuse_unported(args, parser)
     resolve_device(args.device)
     n = args.num_chips or 1
     if args.distributed:

@@ -12,8 +12,8 @@ model reads itself (``_MODEL_KNOBS``: the prompt ablations and
 ``fd_attention`` and ``target_attention_loss``, which the model checks
 against its capture settings) also become ``MADMConfig`` fields; the builder
 only checks that it knows the others.  Unknown keys raise.  ``clip_state``
-other than 'no' (the CLIP image prefix, ROADMAP §A4) raises
-``NotImplementedError``.
+('no', 'no_learnable_clip', 'learnable_clip') puts the ViT-L/14-336 tower
+in front of the prompt (the CLIP image prefix).
 ``ema_w_unet`` is honoured here, where the JAX builder drops the key, so
 that the JAX launcher's ``--ema_w_unet`` changes nothing (ROADMAP §C).
 
@@ -115,9 +115,6 @@ def build_madm(
     if unknown:
         raise ValueError(f"build_madm: unknown config keys {sorted(unknown)} "
                          f"(valid UDA knobs: {sorted(_UDA_KEYS)})")
-    if clip_state != "no":
-        raise NotImplementedError(f"build_madm: clip_state={clip_state!r} is not ported to madm_torch "
-                                  "yet (it takes 'no'; ROADMAP §A4)")
     if remat:
         # JAX's UNet rematerialisation changes memory, not results; the
         # port's step fits one 80 GB card without it (PERF.md §4)
@@ -158,5 +155,6 @@ def build_madm(
         **{k: extra[k] for k in _MODEL_KNOBS if extra.get(k) is not None},
         eval_head=eval_head,
         flash_pack=flash_pack,
+        clip_state=clip_state,
     )
     return MADM(cfg, device=device, trainable=trainable)

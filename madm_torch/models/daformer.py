@@ -109,6 +109,12 @@ class ConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False, update_bn: bool = False) -> torch.Tensor:
         bn = self.bn
+        if self.conv.groups > 1 and x.device.type == "cpu":
+            # a dilated depthwise conv over a channels-last input (the head's
+            # embeds are) on the CPU: oneDNN's bf16 backward reads memory it
+            # did not write (a NaN or inf weight gradient, ROADMAP §C), and in
+            # fp32 it runs 1.6-6x slower than over a contiguous input
+            x = x.contiguous()
         y = self.conv(x)
         if not train:
             return F.relu(F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,

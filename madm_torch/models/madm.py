@@ -1,14 +1,15 @@
 """MADM: diffusion feature extractor + DAFormer head (port of
 ``madm_tpu/models/madm.py``: the eval passes, single-crop and sliding-window,
 with their four eval heads, the train-side backbone and head with the UDA
-step's ablation knobs, LoRA adapters, and the model variants: attention
+step's ablation knobs, LoRA adapters, the model variants: attention
 capture, the head's fusions, the second head, conv_in surgery and the
-prompt structures).
+prompt structures, and the CLIP image prefix).
 
 One ``nn.Module`` holds every weight under checkpoint-style names (``vae``,
 ``unet``, ``prompt.clip_project_rgb``, ``feature_projections``,
 ``sem_seg_head``, the adapters ``lora.<name>``, and where configured
-``sem_seg_head_sec_modal`` and ``pixel_unshuffle``) plus the constants
+``sem_seg_head_sec_modal``, ``pixel_unshuffle`` and the CLIP tower
+``clip_vision``) plus the constants
 ``uncond_inputs`` and ``shared_noise``.
 Public inputs and outputs keep the JAX layout: images NHWC [B, H, W, 3] in
 [0, 1], logits NHWC, ids [B, H, W] int32.
@@ -18,10 +19,11 @@ dtype=compute_dtype`` gives: fp32 master parameters (and, in the optimizer,
 fp32 moments), cast to the compute dtype at each use so that convs, linears
 and kernels K1/K3 run in it; the frozen VAE is kept in the compute dtype.
 It also holds the EMA teacher's copies (``ema.feature_projections``,
-``ema.sem_seg_head`` with its BN statistics, ``ema.clip_project_others``, and
-under ``ema_w_unet`` ``ema.unet`` and ``ema.lora``, which the teacher's
-passes then run).  Eval passes read the student, never the teacher, as
-JAX's read ``params``.
+``ema.sem_seg_head`` with its BN statistics, ``ema.clip_project_others``,
+under ``ema_w_unet`` ``ema.unet`` and ``ema.lora``, and under
+'learnable_clip' ``ema.clip_vision``, which the teacher's passes then
+run).  Eval passes read the student, never the teacher, as JAX's read
+``params``.
 
 ``lora_name`` on a pass merges that adapter into the UNet's attention
 projections for the pass alone (``sd.lora.merge_lora``, functionally, in
@@ -44,6 +46,7 @@ from torch.func import functional_call
 from ..device import resolve_device
 from ..ops import aspp
 from ..parallel import dist as dist_lib
+from . import clip_image
 from . import prompt as prompt_lib
 from .daformer import HEAD_FUSIONS, DAFormerHead, argmax_classes, global_batch_stats, resize_bilinear
 from .projections import MultiScaleProjection
@@ -58,6 +61,8 @@ from .sd.scheduler import add_noise, shared_noise
 FINETUNE_UNET = ("all", "no", "attention", "without cross-attention")
 # eval heads of ``eval_forward_ids`` ('auto': 'aspp' where the head fits it, else 'none')
 EVAL_HEADS = ("auto", "aspp", "argmax", "full", "none")
+# the CLIP image prefix (reference --with_clip, ldm_base.py:740-760,844-853)
+CLIP_STATES = ("no", "no_learnable_clip", "learnable_clip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +152,12 @@ class MADMConfig:
     # by default as there): the UNet self-attentions that pack_group picks
     # run kernels K4/K5 in place of K1/K3
     flash_pack: bool = False
+    # the CLIP image prefix: 'no' (shipped configs), 'no_learnable_clip' (a
+    # frozen tower) or 'learnable_clip' (trained, with an EMA copy for the
+    # teacher's passes); the prompt and time embedding are then lifted from
+    # the tower's image embedding.  clip_vision: the tower's shape (ViT-L/14-336)
+    clip_state: str = "no"
+    clip_vision: clip_image.VisionConfig = clip_image.VisionConfig()
 
     def __post_init__(self):
         if self.finetune_unet not in FINETUNE_UNET:
@@ -159,6 +170,8 @@ class MADMConfig:
             raise ValueError(f"MADMConfig.head_fusion {self.head_fusion!r} is not one of {HEAD_FUSIONS}")
         if self.eval_head not in EVAL_HEADS:
             raise ValueError(f"MADMConfig.eval_head {self.eval_head!r} is not one of {EVAL_HEADS}")
+        if self.clip_state not in CLIP_STATES:
+            raise ValueError(f"MADMConfig.clip_state {self.clip_state!r} is not one of {CLIP_STATES}")
         lora_lib.parse_lora_configs(self.lora_configs)
 
     @property
@@ -201,12 +214,14 @@ def _unet_trains(name: str, mode: str) -> bool:
 
 def trainable_parameters(model: "MADM") -> List[Tuple[str, nn.Parameter]]:
     """(name, parameter) of everything the optimizer updates: the UNet
-    weights that ``finetune_unet`` trains, the LoRA adapters, and the
-    prompts, projections and head.  The VAE and the EMA copies are frozen
-    (the JAX package's ``split_trainable``)."""
+    weights that ``finetune_unet`` trains, the LoRA adapters, the prompts,
+    projections and head, and the CLIP tower under 'learnable_clip'.  The
+    VAE, a 'no_learnable_clip' tower and the EMA copies are frozen (the JAX
+    package's ``split_trainable``)."""
     mode = model.cfg.finetune_unet
+    frozen = ("vae.", "ema.") + (() if model.cfg.clip_state == "learnable_clip" else ("clip_vision.",))
     return [(n, p) for n, p in model.named_parameters()
-            if not n.startswith(("vae.", "ema."))
+            if not n.startswith(frozen)
             and (not n.startswith("unet.") or _unet_trains(n[len("unet."):], mode))]
 
 
@@ -288,9 +303,10 @@ class MADM(nn.Module):
         seq_len = cfg.prompt_seq_len or prompt_lib.PROMPT_SEQ_LEN
 
         def prompt():
-            return prompt_lib.ClipFeatureProject(unet_ch[0] * 4, seq_len, cfg.multi_layer_prompt,
-                                                 learnable=not cfg.without_prompt,
-                                                 alpha=not cfg.without_prompt_alpha)
+            return prompt_lib.ClipFeatureProject(
+                unet_ch[0] * 4, seq_len, cfg.multi_layer_prompt, learnable=not cfg.without_prompt,
+                alpha=not cfg.without_prompt_alpha,
+                in_features=cfg.clip_vision.out_dim if cfg.clip_state != "no" else None)
 
         with torch.device(self.device):
             self.vae = vae_lib.AutoencoderKL(vae_ch)
@@ -304,6 +320,8 @@ class MADM(nn.Module):
                 self.sem_seg_head_sec_modal = head()
             if cfg.concat_pixel_shuffle:
                 self.pixel_unshuffle = PixelUnshuffleTower()
+            if cfg.clip_state != "no":
+                self.clip_vision = clip_image.CLIPVisionTransformer(cfg.clip_vision)
             self.lora_specs = lora_lib.parse_lora_configs(cfg.lora_configs)
             if self.lora_specs:
                 self.lora = nn.ModuleDict({name: lora_lib.LoRAAdapter(self.unet, spec["rank"])
@@ -315,6 +333,8 @@ class MADM(nn.Module):
                     "sem_seg_head": head(),
                     "clip_project_others": prompt(),
                 })
+                if cfg.clip_state == "learnable_clip":
+                    self.ema["clip_vision"] = clip_image.CLIPVisionTransformer(cfg.clip_vision)
                 if cfg.ema_w_unet:
                     self.ema["unet"] = unet()
                     if self.lora_specs:
@@ -331,6 +351,8 @@ class MADM(nn.Module):
         if trainable:
             self.reset_ema_()
             self.vae.to(dtype=cfg.compute_dtype)  # frozen: one cast instead of one per pass
+            if cfg.clip_state == "no_learnable_clip":
+                self.clip_vision.to(dtype=cfg.compute_dtype)
             for _, p in trainable_parameters(self):
                 p.requires_grad_(True)
         else:
@@ -342,11 +364,14 @@ class MADM(nn.Module):
     def student_ema_pairs(self) -> List[Tuple[nn.Module, nn.Module]]:
         """(EMA module, student module) pairs of the teacher's tree (JAX
         ``student_subtree``): projections, head, the target domain's prompt,
-        and under ``ema_w_unet`` the UNet and the adapters."""
+        under 'learnable_clip' the CLIP tower, and under ``ema_w_unet`` the
+        UNet and the adapters."""
         others = "clip_project_rgb" if self.cfg.same_cond_params else "clip_project_others"
         pairs = [(self.ema["feature_projections"], self.feature_projections),
                  (self.ema["sem_seg_head"], self.sem_seg_head),
                  (self.ema["clip_project_others"], self.prompt[others])]
+        if self.cfg.clip_state == "learnable_clip":
+            pairs.append((self.ema["clip_vision"], self.clip_vision))
         if self.cfg.ema_w_unet:
             pairs.append((self.ema["unet"], self.unet))
             if self.lora_specs:
@@ -412,6 +437,20 @@ class MADM(nn.Module):
         if mode == "rand_prompt":
             return lambda cp: prompt_lib.rand_prompt(cp, draw, cfg.rand_prompt_scale)
         return None
+
+    def clip_prefix(self, images: torch.Tensor, ema_forward: bool = False) -> Optional[torch.Tensor]:
+        """The CLIP image embedding [B, D] of NHWC ``images`` in [0, 1] that
+        lifts the prompt and time embedding (None under clip_state 'no'):
+        the teacher's passes read the EMA tower under 'learnable_clip'; the
+        prefix is detached under 'no_learnable_clip' and on the teacher's
+        passes (JAX ``conditioning``, ``madm.py:533-545``)."""
+        cfg = self.cfg
+        if cfg.clip_state == "no":
+            return None
+        learnable = cfg.clip_state == "learnable_clip"
+        tower = self.ema["clip_vision"] if ema_forward and learnable else self.clip_vision
+        prefix = self._compute(tower)(clip_image.preprocess(images, cfg.clip_vision.image_size))
+        return prefix.detach() if ema_forward or not learnable else prefix
 
     # ---------------------------------------------------------- backbone
     def _images(self, images) -> torch.Tensor:
@@ -507,7 +546,8 @@ class MADM(nn.Module):
         gradient reaches the VAE's D=512 attention."""
         cfg = self.cfg
         vae_dtype = self.vae.quant_conv.weight.dtype
-        x01 = self._images(images) * 2.0 - 1.0
+        images = self._images(images)
+        x01 = images * 2.0 - 1.0
         x = x01.permute(0, 3, 1, 2).to(vae_dtype)
         b = x.shape[0]
         with torch.no_grad():
@@ -536,7 +576,8 @@ class MADM(nn.Module):
                 p = prompt_lib.select_domain_params(self.prompt if prompt is None else prompt,
                                                     input_modal, cfg.same_cond_params)
             cond_prompt, cond_time = prompt_lib.conditioning_of(
-                p, self.uncond_inputs, b, self.prompt_ablation(prompt_mode, prompt_draw))
+                p, self.uncond_inputs, b, self.prompt_ablation(prompt_mode, prompt_draw),
+                self.clip_prefix(images, ema_forward))
             teacher_unet = ema_forward and cfg.ema_w_unet
             if unet is None:
                 unet = self.ema["unet"] if teacher_unet else self.unet
@@ -786,11 +827,12 @@ def init_random_(model: MADM, generator: torch.Generator) -> MADM:
     """Seeded random weights, for running without a checkpoint: convs and
     linears N(0, 1/fan_in) with zero bias, norms at identity, BN statistics
     (0, 1), conv_seg N(0, 0.01^2), prompt and time embeds N(0, 0.02^2),
-    prompt blend weights U[0, 1), time blend weight 0, the pixel-unshuffle
-    tower's BN at identity, LoRA adapters at peft's init (A ~ N(0, 1) /
-    rank, B = 0).  The second head and a trainable model's teacher start as
-    copies of the student's.  ``generator`` must live on the
-    model's device."""
+    prompt blend weights U[0, 1), time blend weight 0, the prefix lifts'
+    and the CLIP tower's positional tables and class token N(0, 0.02^2),
+    the pixel-unshuffle tower's BN at identity, LoRA adapters at peft's
+    init (A ~ N(0, 1) / rank, B = 0).  The second head and a trainable
+    model's teacher start as copies of the student's.  ``generator`` must
+    live on the model's device."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator, device=t.device, dtype=torch.float32) * std)
 
@@ -817,6 +859,11 @@ def init_random_(model: MADM, generator: torch.Generator) -> MADM:
                         p.copy_(torch.rand(p.shape, generator=generator, device=p.device))
                 if m.alpha_cond_time is not None:
                     m.alpha_cond_time.zero_()
+            elif isinstance(m, prompt_lib.PositionalLinear):
+                normal(m.positional_embedding, 0.02)
+            elif isinstance(m, clip_image.CLIPVisionEmbeddings):
+                normal(m.class_embedding, 0.02)
+                normal(m.position_embedding.weight, 0.02)
             elif isinstance(m, PixelUnshuffleTower):
                 for p in (m.bn1_scale, m.bn2_scale):
                     p.fill_(1.0)

@@ -397,12 +397,18 @@ def sample_draws(generator: torch.Generator, tc: TrainConfig, labels: torch.Tens
     lead = (prompt_lib.NUM_UNET_LAYERS,) if cfg is not None and cfg.multi_layer_prompt else ()
     if cfg is not None and cfg.add_latent_noise != -1.0:
         draws["latent_noise"] = torch.randn(b, 4, h // 8, w // 8, generator=generator, device=dev)[rows]
+    batch = b if cfg is not None and cfg.clip_state != "no" else 1  # a prefix prompt is per image
+
+    def prompt_draw(mode):
+        draw = prompt_lib.draw_prompt_ablation(generator, mode, seq_len, lead, batch)
+        return draw[rows] if batch != 1 else draw
+
     if tc.mask_prompt_ratio:
-        draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "masked_prompt", seq_len, lead)
+        draws["prompt"] = prompt_draw("masked_prompt")
     elif tc.prompt_perturbation:
-        draws["prompt"] = prompt_lib.draw_prompt_ablation(generator, "prompt_perturbation", seq_len, lead)
+        draws["prompt"] = prompt_draw("prompt_perturbation")
     if tc.prompt_confidence is not None:
-        draws["rand_prompt"] = prompt_lib.draw_prompt_ablation(generator, "rand_prompt", seq_len, lead)
+        draws["rand_prompt"] = prompt_draw("rand_prompt")
     if tc.merge_with_pl_data == "random_choice":
         draws["pl_choice"] = float(torch.rand((), generator=generator, device=dev).item())
     return draws

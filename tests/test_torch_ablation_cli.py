@@ -2,8 +2,7 @@
 on CPU: the dataset's new keys (``remove_amp`` with ``fda_fusion_val``,
 ``remove_texture``, ``pl_data_path``, ``merge_more_target_data``) and the
 loader's batches on PNGs the test writes; each newly ported CLI flag's
-change to the config tree against the JAX launcher's; each flag still
-unported raising with its ROADMAP section; and ``madm_torch.main.main``
+change to the config tree against the JAX launcher's; and ``madm_torch.main.main``
 end to end with the ported flags, in four runs that respect the exclusive
 MIC loss slot."""
 
@@ -26,6 +25,7 @@ from madm_torch.config import LazyConfig, instantiate
 from madm_torch.data import CrossModalityDataset, TrainLoader
 from madm_torch.train.train_step import build_train_config
 from test_torch_cli import _config, _dataset_kwargs, _same_sample, cli_argv, data_root, overrides  # noqa: F401
+from torch_port_toy import remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 # ------------------------------------------------------------------ dataset
 
@@ -113,6 +113,8 @@ PORTED_FLAGS = [
      *map(str, range(1, 12))],
     ["--without_vae_encoder_feat"], ["--baseline_wo_encoder_feat"], ["--single_scale_decoder"],
     ["--concat_pixel_shuffle"], ["--mask_diff", "rgb=0_Depth=1"],
+    # the CLIP image prefix
+    ["--with_clip", "no_learnable_clip"], ["--with_clip", "learnable_clip"],
 ]
 # the toy widths of tests/test_torch_cli.py's overrides, a scale each
 TOY_FEATURE_DIMS = {"s0": 3, "s3": 32, "s4": 64, "s5": 128}
@@ -139,10 +141,9 @@ def _changes(load, parser, mutate, flag, root):
 @pytest.mark.parametrize("flag", PORTED_FLAGS, ids=lambda f: "_".join(f))
 def test_ported_flag_changes_the_config_as_jax(flag, data_root):
     """The flag's change to the loaded config tree equals the JAX launcher's
-    (``apply_cli_mutations``); the port refuses nothing of it, and builds
-    the model and the TrainConfig from the changed tree at toy width."""
+    (``apply_cli_mutations``), and the port builds the model and the
+    TrainConfig from the changed tree at toy width."""
     port_parser, jax_parser = port_main.build_parser(), jax_main.build_parser()
-    port_main.refuse_unported(port_parser.parse_args(["--config-file", "x", *flag]), port_parser)
     port = _changes(lambda: LazyConfig.load(_config("port", "depth_11")), port_parser,
                     port_main.apply_cli_mutations, flag, data_root)
     ref = _changes(lambda: JaxLazyConfig.load(_config("jax", "depth_11")), jax_parser,
@@ -166,21 +167,6 @@ def test_ported_flag_changes_the_config_as_jax(flag, data_root):
             assert getattr(model.cfg, name) == (tuple(value) if isinstance(value, list) else value), key
         elif node == "model" and hasattr(tc, name):
             assert getattr(tc, name) == (tuple(value) if isinstance(value, list) else value), key
-
-
-@pytest.mark.parametrize("flag", list(port_main.UNPORTED_FLAGS))
-def test_unported_flags_name_their_section(flag):
-    """Every flag the port has not taken raises and names the ROADMAP
-    section that queues it."""
-    parser = port_main.build_parser()
-    action = next(a for a in parser._actions if flag in a.option_strings)
-    value = [] if action.nargs == 0 else (["1"] if action.type in (int, float) else
-                                         ["learnable_clip"] if action.choices else ["x"])
-    if action.nargs == "+":
-        value = ["1"]
-    args = parser.parse_args(["--config-file", "x", flag, *value])
-    with pytest.raises(NotImplementedError, match=rf"{flag} .*ROADMAP {port_main.UNPORTED_FLAGS[flag]}"):
-        port_main.refuse_unported(args, parser)
 
 
 # ------------------------------------------------------------ CLI end to end

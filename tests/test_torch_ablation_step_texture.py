@@ -12,15 +12,22 @@ import pytest
 from test_torch_lora import LORA
 from torch_ablation_step import check_ema_and_bn, check_frozen, check_gradients, check_metrics, check_updates
 from torch_ablation_step import run_group
+from torch_port_toy import jax_pass_step
 
 PREFIXES = ["unet.", "lora.default.", "lora.Depth.", "prompt.", "feature_projections.", "sem_seg_head."]
 
 
 @pytest.fixture(scope="module")
 def stepped():
+    # a flax init: on the port's seeded weights one pixel of the teacher's
+    # confidence sits at the pseudo-label threshold, within fp32 noise, and
+    # the two packages put it on either side (pseudo_val 1/8192 apart, the
+    # target losses 7.9e-4 relative).  JAX's backbone passes compiled
+    # whole: with its modules compiled alone the grad_norm moves 1.4e-4
+    # relative from the whole step's, over the check's 1e-4
     return run_group(dict(finetune_unet="without cross-attention", ema_w_unet=True),
                      dict(remove_texture=True, prompt_confidence=0.5, enable_mixup=False),
-                     lora=LORA, unet_lr=5e-3)
+                     lora=LORA, unet_lr=5e-3, flax_init=True, jax_step=jax_pass_step)
 
 
 def test_texture_step_losses_and_grad_norm_match_jax(stepped):

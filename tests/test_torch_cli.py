@@ -8,6 +8,7 @@ import dataclasses
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
 import types
@@ -37,7 +38,7 @@ from madm_torch.models.madm import MADMConfig
 from madm_torch.parallel import dist as dist_lib
 from madm_torch.train.loop import init_train_state, synthetic_batches, train
 from madm_torch.train.train_step import TrainConfig, build_train_config
-from torch_port_toy import TOY, jax_variables, sure_pixels
+from torch_port_toy import TOY, jax_variables, remove_tmp_path, sure_pixels  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -182,7 +183,7 @@ def _assert_built_equal(port, ref):
     model = instantiate(node)
     jmodel = jax_instantiate(ref.model)
     for f in dataclasses.fields(MADMConfig):
-        if f.name in ("compute_dtype", "eval_head", "flash_pack"):
+        if f.name in ("compute_dtype", "eval_head", "flash_pack", "clip_vision"):  # the port's own fields
             continue
         assert getattr(model.cfg, f.name) == getattr(jmodel.cfg, f.name), f.name
     assert str(model.cfg.compute_dtype).split(".")[-1] == jmodel.cfg.compute_dtype.__name__
@@ -204,12 +205,14 @@ def _assert_built_equal(port, ref):
 
 
 def test_unported_config_values_raise(data_root):
+    """Unknown config keys raise; both clip states build (the CLIP tower in
+    front of the prompt)."""
     port = LazyConfig.load(_config("port", "depth_11"))
-    for value in ("'learnable_clip'", "'no_learnable_clip'"):
+    for value in ("learnable_clip", "no_learnable_clip"):
         cfg = LazyConfig.apply_overrides(LazyConfig.load(_config("port", "depth_11")),
-                                         [f"model.clip_state={value}"] + overrides(data_root))
-        with pytest.raises(NotImplementedError, match="clip_state"):
-            instantiate(dict(cfg.model, device="cpu"))
+                                         [f"model.clip_state={value!r}"] + overrides(data_root))
+        model = instantiate(dict(cfg.model, device="cpu"))
+        assert model.cfg.clip_state == value and hasattr(model, "clip_vision")
     with pytest.raises(ValueError, match="unknown config keys"):
         instantiate(dict(port.model, device="cpu", not_a_knob=1))
 
@@ -395,7 +398,8 @@ def cli_argv(data_root, out):
 def cli_run(data_root, tmp_path_factory):
     run_dir = tmp_path_factory.mktemp("torch_cli_run") / "run"
     state = main(cli_argv(data_root, run_dir))
-    return run_dir, state
+    yield run_dir, state
+    shutil.rmtree(run_dir.parent, ignore_errors=True)
 
 
 def test_cli_trains_evaluates_and_checkpoints(cli_run):
@@ -423,15 +427,6 @@ def test_cli_eval_only_reproduces_the_training_eval(cli_run, data_root, tmp_path
     rows = [json.loads(line) for line in (run_dir / "metrics.json").read_text().splitlines()]
     assert {k: float(v) for k, v in results.items()} == {k[5:]: v for k, v in rows[-1].items()
                                                          if k.startswith("eval/")}
-
-
-@pytest.mark.parametrize("flag", [["--with_clip", "learnable_clip"]])
-def test_cli_refuses_unported_flags(flag, data_root, tmp_path):
-    argv = cli_argv(data_root, tmp_path)
-    ins = argv.index("--output")
-    argv[ins:ins] = flag
-    with pytest.raises(NotImplementedError, match=flag[0]):
-        main(argv)
 
 
 def test_cli_num_chips_2_on_cpu(data_root, tmp_path):

@@ -46,7 +46,7 @@ from madm_torch.models.madm import MADM, MADMConfig, init_random_
 from madm_torch.train.train_step import make_train_state, TrainConfig
 from test_torch_cli import cli_argv, data_root  # noqa: F401 (data_root: a fixture)
 from test_torch_clip_text import hf_state
-from torch_port_toy import TOY, jax_variables
+from torch_port_toy import TOY, jax_variables, remove_tmp_path  # noqa: F401 (an autouse fixture)
 
 LORA = ("default_r4_a8", "Depth_r4_a4")
 CLIP = dict(vocab_size=49408, width=768, layers=1, mlp_dim=256, max_len=77)
@@ -150,7 +150,8 @@ def snapshot(tmp_path_factory):
     vae_bin = full / "vae" / "diffusion_pytorch_model.bin"
     torch.save({_legacy_vae(k): v for k, v in torch.load(vae_bin).items()}, vae_bin)
     shutil.copytree(full, bare, ignore=shutil.ignore_patterns("text_encoder"))
-    return writer, full, bare
+    yield writer, full, bare
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_snapshot_paths_equal_jax_params(snapshot):
@@ -255,7 +256,8 @@ def released(tmp_path_factory):
     for in_index in ((0, 1, 2, 3), (1, 2, 3, 4)):
         paths[in_index] = str(root / f"released_{''.join(map(str, in_index))}.pth")
         torch.save({"model": reference_state_dict(writer, in_index), "iteration": 99}, paths[in_index])
-    return writer, paths
+    yield writer, paths
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_released_layout_is_the_references(released):

@@ -15,12 +15,10 @@ import pytest
 import torch
 
 from madm_tpu.checkpoint.converter import convert_unet_state
-from madm_tpu.models.madm import MADM as JaxMADM
-from madm_tpu.models.madm import MADMConfig as JaxMADMConfig
 from madm_tpu.models.sd import lora as jlora
 from madm_tpu.ops import dacs as jdacs
 from madm_tpu.train import TrainConfig as JaxTrainConfig
-from madm_tpu.train import make_optimizer, make_train_state, make_train_step, split_trainable
+from madm_tpu.train import make_optimizer, make_train_state, split_trainable
 from madm_torch.checkpoint.from_jax import state_dict_from_jax
 from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.models.sd import lora as plora
@@ -28,7 +26,7 @@ from madm_torch.ops import dacs, palette
 from madm_torch.train.train_step import TrainConfig, make_train_state as port_state, pass_adapters, train_step
 from test_torch_train import (ADAM_EPS, GRAD_ATOL_OF_MAX, GRAD_L2_RTOL, LR, RTOL, SEG_SCALE, STEP_KW,
                               _batch)
-from torch_port_toy import TOY
+from torch_port_toy import TOY, jax_madm, jax_train_step, train_variables
 
 LORA = ("default_r4_a8", "Depth_r4_a4")  # alpha != rank: scales 2 and 1
 B_STD = 0.05
@@ -172,22 +170,22 @@ def stepped():
     model's variables (B drawn nonzero) carried into the port by
     ``state_dict_from_jax``; both take one step from the same batch and DACS
     mask."""
-    jm = JaxMADM(JaxMADMConfig(**TOY, compute_dtype=jnp.float32, lora_configs=LORA,
-                               target_modality="Depth", train_palette=palette.DELIVER_11_PALETTE))
+    jm = jax_madm(**TOY, compute_dtype=jnp.float32, lora_configs=LORA, target_modality="Depth",
+                  train_palette=palette.DELIVER_11_PALETTE)
     jm.head = jm.head.clone(dropout_ratio=0.0)
-    variables = jm.init_params(jax.random.PRNGKey(0))
+    variables = train_variables(jm)
     params = variables["params"]
     conv_seg = dict(params["head"]["conv_seg"], kernel=params["head"]["conv_seg"]["kernel"] * SEG_SCALE)
     lora = {name: _nonzero_b(tree, i) for i, (name, tree) in enumerate(params["lora"].items())}
     variables["params"] = dict(params, head=dict(params["head"], conv_seg=conv_seg), lora=lora)
+    variables["ema"] = jm.init_ema(variables["params"])
     tc = JaxTrainConfig(**STEP_KW)
     trainable, _ = split_trainable(variables)
     tx = make_optimizer(trainable, base_lr=LR, max_iter=tc.max_iter)
     state = make_train_state(jm, variables, tx)
     batch = _batch()
     rng = jax.random.PRNGKey(42)
-    new_state, metrics = jax.jit(make_train_step(jm, tc, tx))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    new_state, metrics = jax_train_step(jm, tc, tx)(state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
     adam = [x for x in jax.tree_util.tree_leaves(new_state.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
             if hasattr(x, "mu")]
     mask = jdacs.sample_class_masks(jax.random.split(rng, 15)[0], jnp.asarray(batch["source_label"]), 11)

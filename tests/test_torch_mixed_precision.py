@@ -26,16 +26,23 @@ LOSS_RTOL = 2.0 ** -5
 
 @pytest.fixture(scope="module")
 def stepped():
+    """The two steps on one thread (restored after): the bf16 sums depend
+    on the thread count."""
     tc = TrainConfig()
-    m32 = init_random_(MADM(WIDE_TOY, device="cpu", trainable=True), torch.Generator().manual_seed(0))
-    m16 = MADM(dataclasses.replace(WIDE_TOY, compute_dtype=torch.bfloat16), device="cpu",
-               trainable=True)
-    m16.load_state_dict(m32.state_dict())
-    gen = torch.Generator().manual_seed(5)
-    batch = next(synthetic_batches(2, WIDE_TOY.crop_size, WIDE_TOY.num_classes, gen))
-    draws = sample_draws(gen, tc, batch["source_label"], WIDE_TOY.num_classes, m32.sem_seg_head)
-    draws["mix_mask"] = torch.ones_like(draws["mix_mask"])
-    metrics = [train_step(make_train_state(m, tc), batch, draws=draws) for m in (m32, m16)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        m32 = init_random_(MADM(WIDE_TOY, device="cpu", trainable=True), torch.Generator().manual_seed(0))
+        m16 = MADM(dataclasses.replace(WIDE_TOY, compute_dtype=torch.bfloat16), device="cpu",
+                   trainable=True)
+        m16.load_state_dict(m32.state_dict())
+        gen = torch.Generator().manual_seed(5)
+        batch = next(synthetic_batches(2, WIDE_TOY.crop_size, WIDE_TOY.num_classes, gen))
+        draws = sample_draws(gen, tc, batch["source_label"], WIDE_TOY.num_classes, m32.sem_seg_head)
+        draws["mix_mask"] = torch.ones_like(draws["mix_mask"])
+        metrics = [train_step(make_train_state(m, tc), batch, draws=draws) for m in (m32, m16)]
+    finally:
+        torch.set_num_threads(threads)
     return m32, m16, metrics
 
 

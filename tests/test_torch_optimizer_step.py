@@ -14,22 +14,15 @@ import optax
 import pytest
 import torch
 
-from madm_tpu.models.madm import MADM as JaxMADM
-from madm_tpu.models.madm import MADMConfig as JaxMADMConfig
 from madm_tpu.ops import dacs as jdacs
-from madm_tpu.train import (
-    TrainConfig as JaxTrainConfig,
-    make_optimizer,
-    make_train_state,
-    make_train_step,
-    split_trainable,
-)
+from madm_tpu.train import TrainConfig as JaxTrainConfig, make_optimizer, make_train_state, split_trainable
 from madm_torch.checkpoint.from_jax import state_dict_from_jax
 from madm_torch.models.madm import MADM, MADMConfig
 from madm_torch.ops import dacs, palette
 from madm_torch.train.optimizer import factored_dims
 from madm_torch.train.train_step import TrainConfig, make_train_state as port_state, train_step
 from test_torch_train import GRAD_ATOL_OF_MAX, LR, RTOL, SEG_SCALE, STEP_KW, TOY, _batch
+from torch_port_toy import jax_madm, jax_train_step
 
 B1 = 0.9
 # The momentum after one step is (1 - b1) lr u, read back from bf16 (half
@@ -49,9 +42,11 @@ U_FACTORED_TOL = 2 ** -6
 
 @pytest.fixture(scope="module")
 def stepped():
-    jm = JaxMADM(JaxMADMConfig(**TOY, compute_dtype=jnp.float32,
-                               train_palette=palette.DELIVER_11_PALETTE))
+    jm = jax_madm(**TOY, compute_dtype=jnp.float32, train_palette=palette.DELIVER_11_PALETTE)
     jm.head = jm.head.clone(dropout_ratio=0.0)
+    # a flax init: on the port's seeded weights one pixel of the teacher's
+    # confidence sits at the pseudo-label threshold, within fp32 noise, and
+    # the two packages put it on either side (pseudo_val 1/8192 apart)
     variables = jm.init_params(jax.random.PRNGKey(0))
     params = variables["params"]
     conv_seg = dict(params["head"]["conv_seg"], kernel=params["head"]["conv_seg"]["kernel"] * SEG_SCALE)
@@ -62,8 +57,7 @@ def stepped():
     state = make_train_state(jm, variables, tx)
     batch = _batch()
     rng = jax.random.PRNGKey(42)
-    new_state, metrics = jax.jit(make_train_step(jm, tc, tx))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    new_state, metrics = jax_train_step(jm, tc, tx)(state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
     (ema,) = [x for x in jax.tree_util.tree_leaves(
         new_state.opt_state, is_leaf=lambda x: isinstance(x, optax.EmaState))
         if isinstance(x, optax.EmaState)]

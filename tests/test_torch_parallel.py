@@ -11,6 +11,7 @@ The spawned ranks import this module and ``chip_smoke`` by name, so neither
 imports JAX (the conftest's JAX set-up must not run in them)."""
 
 import copy
+import shutil
 
 import numpy as np
 import pytest
@@ -39,6 +40,15 @@ CPUS = ["cpu", "cpu"]
 RTOL, GRAD_OF_MAX, BN_OF_MAX = 1e-4, 2e-3, 1e-5
 
 
+@pytest.fixture(autouse=True)
+def remove_tmp_path(request):
+    """Each test's ``tmp_path`` (checkpoints) removed at its teardown."""
+    yield
+    path = request.node.funcargs.get("tmp_path")
+    if path is not None:
+        shutil.rmtree(path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module", params=["sample", "batch"])
 def world2(request, tmp_path_factory):
     tc = TrainConfig(pseudo_weight_scope=request.param)
@@ -46,7 +56,9 @@ def world2(request, tmp_path_factory):
     ref = steps_on_rows(*args)
     path = tmp_path_factory.mktemp("starts") / "starts.pt"
     torch.save(ref["starts"], path)
-    return tc, ref, dist_lib.run_ranks(steps_on_rows, 2, CPUS, args=args + (str(path),))
+    ranks = dist_lib.run_ranks(steps_on_rows, 2, CPUS, args=args + (str(path),))
+    shutil.rmtree(path.parent, ignore_errors=True)
+    return tc, ref, ranks
 
 
 def test_world2_steps_equal_the_b2_steps(world2):

@@ -5,7 +5,8 @@ initialised by the JAX package; its variables go through
 ``state_dict_from_jax`` into a trainable port model.  The JAX
 ``make_train_step`` (shipped TrainConfig, but colour jitter off with p = 1,
 blur off, the teacher timestep fixed at 60, and the head's dropout set to 0
-on the test's own object) is compiled once and takes one step; the port takes
+on the test's own object) takes one step, its modules compiled one by one
+(``torch_port_toy.jax_train_step``); the port takes
 the same step with the DACS mask the JAX step drew.  The head's conv_seg is
 scaled up so that the teacher is confident on part of the image and the
 pseudo-weighted terms are not zero.  Also here: the train-mode head alone,
@@ -25,22 +26,15 @@ import pytest
 import torch
 
 from madm_tpu.models.daformer import DAFormerHead as JaxHead
-from madm_tpu.models.madm import MADM as JaxMADM
-from madm_tpu.models.madm import MADMConfig as JaxMADMConfig
 from madm_tpu.ops import dacs as jdacs
-from madm_tpu.train import (
-    TrainConfig as JaxTrainConfig,
-    make_optimizer,
-    make_train_state,
-    make_train_step,
-    split_trainable,
-)
+from madm_tpu.train import TrainConfig as JaxTrainConfig, make_optimizer, make_train_state, split_trainable
 from madm_torch.checkpoint.from_jax import state_dict_from_jax
 from madm_torch.models.daformer import DAFormerHead
 from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.ops import dacs, palette
 from madm_torch.train import train_step as ts
 from madm_torch.train.train_step import TrainConfig, make_train_state as port_state, train_step
+from torch_port_toy import jax_madm, jax_train_step
 
 TOY = dict(num_classes=11, crop_size=(64, 64), unet_channels=(32, 64, 128, 128),
            vae_channels=(32, 32, 64, 64), feature_dims=(3, 32, 64, 128),
@@ -84,9 +78,11 @@ def _batch():
 
 @pytest.fixture(scope="module")
 def stepped():
-    jm = JaxMADM(JaxMADMConfig(**TOY, compute_dtype=jnp.float32,
-                               train_palette=palette.DELIVER_11_PALETTE))
+    jm = jax_madm(**TOY, compute_dtype=jnp.float32, train_palette=palette.DELIVER_11_PALETTE)
     jm.head = jm.head.clone(dropout_ratio=0.0)
+    # a flax init: on the port's seeded weights one pixel of the teacher's
+    # confidence sits at the pseudo-label threshold, within fp32 noise, and
+    # the two packages put it on either side (pseudo_val 1/8192 apart)
     variables = jm.init_params(jax.random.PRNGKey(0))
     params = variables["params"]
     conv_seg = dict(params["head"]["conv_seg"], kernel=params["head"]["conv_seg"]["kernel"] * SEG_SCALE)
@@ -97,8 +93,7 @@ def stepped():
     state = make_train_state(jm, variables, tx)
     batch = _batch()
     rng = jax.random.PRNGKey(42)
-    new_state, metrics = jax.jit(make_train_step(jm, tc, tx))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    new_state, metrics = jax_train_step(jm, tc, tx)(state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
     adam = [x for x in jax.tree_util.tree_leaves(new_state.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
             if hasattr(x, "mu")]
     assert len(adam) == 1

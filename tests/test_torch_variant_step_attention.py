@@ -20,7 +20,7 @@ PREFIXES = ["unet.", "prompt.", "feature_projections.", "sem_seg_head."]
 
 @pytest.fixture(scope="module")
 def stepped():
-    return run_group(MODEL, dict(fd_attention=0.5, target_attention_loss=True), jax_init=False)
+    return run_group(MODEL, dict(fd_attention=0.5, target_attention_loss=True))
 
 
 def test_attention_step_losses_and_grad_norm_match_jax(stepped):

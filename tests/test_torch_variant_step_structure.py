@@ -21,7 +21,7 @@ PREFIXES = ["unet.", "prompt.", "feature_projections.", "sem_seg_head.", "sem_se
 
 @pytest.fixture(scope="module")
 def stepped():
-    return run_group(MODEL, {}, jax_init=False)
+    return run_group(MODEL, {})
 
 
 def test_structure_step_losses_and_grad_norm_match_jax(stepped):

@@ -1,10 +1,12 @@
 """One toy UDA step with ablation branches, the port against the JAX
 package's ``make_train_step``, shared by ``tests/test_torch_ablation_step_*.py``.
 
-``tests/test_torch_train.py``'s recipe: a toy MADM initialised by the JAX
-package (fp32, the head's dropout 0, conv_seg scaled so that the teacher is
-confident on part of the image), its variables carried into a trainable port
-model by ``state_dict_from_jax``, one step on each side from the same batch.
+``tests/test_torch_train.py``'s recipe: a toy MADM on the port's seeded
+weights carried into JAX (``torch_port_toy.train_variables``; fp32, the
+head's dropout 0, conv_seg scaled so that the teacher is confident on part
+of the image), the JAX train state carried into a trainable port model by
+``state_dict_from_jax``, one step on each side from the same batch (JAX's
+through ``torch_port_toy.jax_train_step``).
 The port takes every random value the JAX step drew from
 ``jax.random.split(rng, 15)``: the DACS mask, the teacher, denoise and
 noise-reg timesteps (drawn from a range here), the MIC block scores, the
@@ -12,8 +14,9 @@ latent noise, the prompt ablations' values and the random_choice uniform.
 Colour jitter (p = 1) and blur stay off, as in that test.  With ``fd`` or
 ``fd_attention`` the student's UNet and prompt are perturbed after the
 baseline is taken, so that the feature distance and its gradient are not
-zero.  ``tests/test_torch_variant_step_*.py`` run the model variants
-through the same recipe.  The checks hold the
+zero.  ``tests/test_torch_variant_step_*.py`` run the model variants, and
+``tests/test_torch_clip_step.py`` the CLIP image prefix, through the same
+recipe.  The checks hold the
 port to ``tests/test_torch_train.py``'s tolerances.
 """
 
@@ -22,20 +25,18 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from madm_tpu.models.madm import MADM as JaxMADM
-from madm_tpu.models.madm import MADMConfig as JaxMADMConfig
 from madm_tpu.ops import dacs as jdacs
 from madm_tpu.train import TrainConfig as JaxTrainConfig
-from madm_tpu.train import make_optimizer, make_train_state, make_train_step, split_trainable
+from madm_tpu.train import make_optimizer, make_train_state, split_trainable
 from madm_tpu.train.train_step import add_feature_distance_baseline as jax_add_baseline
 from madm_torch.checkpoint.from_jax import state_dict_from_jax
-from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
+from madm_torch.models.madm import MADM, MADMConfig, trainable_parameters
 from madm_torch.ops import dacs, palette
 from madm_torch.train.train_step import TrainConfig, add_feature_distance_baseline, make_train_state as port_state
 from madm_torch.train.train_step import train_step
 from test_torch_lora import _nonzero_b
 from test_torch_train import ADAM_EPS, GRAD_ATOL_OF_MAX, GRAD_L2_RTOL, LR, RTOL, SEG_SCALE, _batch
-from torch_port_toy import TOY, jax_variables
+from torch_port_toy import TOY, jax_madm, jax_train_step, train_variables
 
 STEP_KW = dict(color_jitter_probability=1.0, blur=False, denoise_timestep_range=(50, 70))
 # relative N(0, 1) noise on the student's UNet and prompt under fd, so that
@@ -80,29 +81,26 @@ def jax_draws(rng, labels, seq_len, tc):
     }
 
 
-def run_group(model_kw, tc_kw, lora=(), unet_lr=None, jax_init=True):
+def run_group(model_kw, tc_kw, lora=(), unet_lr=None, prepare=None, flax_init=False,
+              jax_step=jax_train_step):
     """One step of each package with the ablation settings ``model_kw``
-    (MADMConfig fields, the same names in both) and ``tc_kw`` (TrainConfig
-    fields); returns what the checks below read.  ``jax_init=False`` starts
-    from the port's seeded weights through the JAX converter
-    (``torch_port_toy.jax_variables``) instead of a flax init, ~70 s less."""
-    jm = JaxMADM(JaxMADMConfig(**TOY, compute_dtype=jnp.float32, lora_configs=lora,
-                               target_modality="Depth", train_palette=palette.DELIVER_11_PALETTE,
-                               **model_kw))
+    (MADMConfig fields, the same names in both, and the port's
+    ``clip_vision``) and ``tc_kw`` (TrainConfig fields); ``prepare`` edits
+    the JAX params before the teacher copies them; ``flax_init`` starts
+    from a flax init (~70 s) in place of the port's seeded weights;
+    ``jax_step`` runs JAX's step (``torch_port_toy.jax_train_step`` or
+    ``jax_pass_step``).  Returns what the checks below read."""
+    jm = jax_madm(**TOY, compute_dtype=jnp.float32, lora_configs=lora, target_modality="Depth",
+                  train_palette=palette.DELIVER_11_PALETTE, **model_kw)
     jm.head = jm.head.clone(dropout_ratio=0.0)
-    if jax_init:
-        variables = jm.init_params(jax.random.PRNGKey(0))
-    else:
-        seeded = init_random_(MADM(MADMConfig(**TOY, compute_dtype=torch.float32, **model_kw), device="cpu"),
-                              torch.Generator().manual_seed(0))
-        variables = jax_variables(seeded)
-        variables["params"]["lora"] = {}
-        variables["state"]["ema_head_bn"] = variables["state"]["head_bn"]
+    variables = jm.init_params(jax.random.PRNGKey(0)) if flax_init else train_variables(jm, **model_kw)
     params = variables["params"]
     conv_seg = dict(params["head"]["conv_seg"], kernel=params["head"]["conv_seg"]["kernel"] * SEG_SCALE)
     params = dict(params, head=dict(params["head"], conv_seg=conv_seg))
     if lora:
         params["lora"] = {name: _nonzero_b(tree, i) for i, (name, tree) in enumerate(params["lora"].items())}
+    if prepare is not None:
+        params = prepare(params)
     variables["params"] = params
     variables["ema"] = jm.init_ema(params)
     # a nonzero empty-prompt embedding: alpha_uncond_prompt gets a gradient,
@@ -110,7 +108,8 @@ def run_group(model_kw, tc_kw, lora=(), unet_lr=None, jax_init=True):
     uncond = np.random.default_rng(3).standard_normal((1, 77, 768)).astype(np.float32)
     variables["consts"] = dict(variables["consts"], uncond_inputs=jnp.asarray(uncond))
     tc = JaxTrainConfig(**STEP_KW, **tc_kw)
-    trainable, _ = split_trainable(variables, jm.cfg.finetune_unet)
+    trainable, _ = split_trainable(variables, jm.cfg.finetune_unet,
+                                   learnable_clip=jm.cfg.clip_state == "learnable_clip")
     tx = make_optimizer(trainable, base_lr=LR, max_iter=tc.max_iter, unet_lr=unet_lr)
     state = make_train_state(jm, variables, tx)
     if tc.fd or tc.fd_attention:
@@ -121,8 +120,7 @@ def run_group(model_kw, tc_kw, lora=(), unet_lr=None, jax_init=True):
     extra = np.random.default_rng(5).uniform(size=(2, 2, 64, 64, 3)).astype(np.float32)
     batch.update(source_pl_data=extra[0], target_second_modality_pha=extra[1])
     rng = jax.random.PRNGKey(42)
-    new_state, metrics = jax.jit(make_train_step(jm, tc, tx))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
+    new_state, metrics = jax_step(jm, tc, tx)(state, {k: jnp.asarray(v) for k, v in batch.items()}, rng)
     adam = [x for x in jax.tree_util.tree_leaves(new_state.opt_state, is_leaf=lambda x: hasattr(x, "mu"))
             if hasattr(x, "mu")]
     assert len(adam) == 1
