@@ -127,6 +127,25 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    no kernel), then one 'learnable_clip' step at B=1 after a warm-up (K1
    104, K3 64; every trained tensor, the tower's included, with a finite
    gradient not all zero): ms, peak memory.
+15. the CompVis LDM path (``models/ldm_extractor.py``, ``models/diffusion.py``,
+   the CompVis loader, the native decoder): (a) on toy widths in fp32 (TF32
+   off), the extractor at steps (0, 100), the implicit captioner with the
+   narrow tower ('rgb' and the EMA 'depth' set), a guided eps and a 4-step
+   DDIM with guidance over the toy UNet, CUDA (K1's fp32 body) against CPU
+   (twins) from the same weights and draws, within 1e-4 of max(1,
+   max|ref|) (the DDIM sample within that times the first step's
+   amplification of an eps difference, (2 x 7.5 - 1) sqrt((1 - acp) / acp)
+   = 57.4); (b) K1's fp32 body against its twin at
+   the eval pass's shapes; an fp16 CompVis ``.ckpt`` of a seeded full-width
+   UNet, VAE and CLIP text encoder, written and loaded through
+   ``LdmCheckpointer`` equal to the writer tensor by tensor; ``LdmExtractor``
+   with ODISE's taps (encoder 5, 7; UNet 2, 5, 8, 11; decoder 2, 5) on
+   [1,512,512,3] and [2,512,512,3] in fp32 and bf16 (K1 34 a pass), at steps
+   (0, 100) (K1 66), the captioner behind the ViT-L/14-336 tower at B=1 (K1
+   34), DDIM 'ddim4' at latent [1,4,64,64] with guidance (K1 128): feature
+   shapes, finite values, launches, ms, peak memory; (c) the native decoder
+   built from ``native/madm_data.cpp`` against PIL on phase 9's synthetic
+   PNGs, and which decoder phase 9's CLI used, with its data_time.
 The second-to-last stdout line is the kernels JSON, the last the contract line.
 Imports nothing of JAX.
 """
@@ -153,16 +172,22 @@ import torch.nn.functional as F
 from madm_torch import kernels
 from madm_torch.checkpoint import (
     Checkpointer,
+    LdmCheckpointer,
     convert_madm_pth,
     merge_into_model,
     reference_state_dict,
+    save_compvis_checkpoint,
     save_sd_snapshot,
 )
+from madm_torch.data import native
 from madm_torch.device import card_line
 from madm_torch.evaluation import DSECSemSegEvaluator, inference_on_dataset, make_slide_eval_fn
 from madm_torch.models.clip_image import VisionConfig
 from madm_torch.models.clip_text import CLIPTextTransformer, compute_uncond_inputs
 from madm_torch.models.daformer import argmax_classes
+from madm_torch.models.diffusion import GaussianDiffusion
+from madm_torch.models.ldm_extractor import LatentDiffusion, LdmExtractor, LdmImplicitCaptionerExtractor
+from madm_torch.models.ldm_extractor import init_random_ as init_ldm_random_
 from madm_torch.models.madm import MADM, MADMConfig, init_random_, trainable_parameters
 from madm_torch.ops.aspp import (
     argmax_c_plan,
@@ -1433,13 +1458,15 @@ def run_cli(card):
         counts = launch_counts()
         rows = [json.loads(line) for line in (out / "metrics.json").read_text().splitlines()]
         iter_s = [r["time"] for r in rows if "total_loss" in r and "eval/mIoU" not in r]
+        data_s = [r["data_time"] for r in rows if "data_time" in r]
         results = {k[5:]: v for k, v in rows[-1].items() if k.startswith("eval/")}
         files = sorted(f"{p.relative_to(out)} ({p.stat().st_size} B)" for p in out.rglob("*") if p.is_file())
         expected = {k: CLI_TRAIN_LAUNCHES.get(k, 0) + CLI_EVAL_LAUNCHES.get(k, 0)
                     for k in {*CLI_TRAIN_LAUNCHES, *CLI_EVAL_LAUNCHES}}
         log(f"CLI train (depth config, full width, bf16, flash_pack, --bs 2 --max_iter 2 --eval_iter 2): "
             f"step {state.step}, {wall:.1f} s in all; s/iter {', '.join(f'{s:.3f}' for s in iter_s)} "
-            f"(the first includes set-up); eval {results}; launches {counts}; files {files} [{card}]")
+            f"(the first includes set-up), data_time {', '.join(f'{s:.3f}' for s in data_s)} s "
+            f"({native.decoder_name()} decoder); eval {results}; launches {counts}; files {files} [{card}]")
         del state
         torch.cuda.empty_cache()
         if counts != expected:
@@ -1464,6 +1491,7 @@ def run_cli(card):
             raise AssertionError(f"CLI eval-only launched {counts}; expected {CLI_EVAL_LAUNCHES}")
         if {k: float(again[k]) for k in results} != results:
             raise AssertionError(f"--eval-only gave {again}, the training run's eval {results}")
+    return {"decoder": native.decoder_name(), "data_time": data_s, "iter_s": iter_s}
 
 
 # phase 10: the adapters of the loaded model, and what its passes launch
@@ -2542,6 +2570,303 @@ def run_clip_full(card):
     return rows
 
 
+# ------------------------------------------------------------------ phase 15
+TOY_LDM = dict(unet_channels=(32, 64, 128, 128), vae_channels=(32, 32, 64, 64))
+# the ODISE tap set: encoder resnet inputs 5, 7; UNet up-block inputs 2, 5, 8, 11; decoder 2, 5
+LDM_TAPS = dict(encoder_block_indices=(5, 7), unet_block_indices=(2, 5, 8, 11), decoder_block_indices=(2, 5))
+LDM_TOL = 1e-4  # features, CUDA against CPU in fp32: summation order through the UNet and VAE
+
+
+def ldm_launches(steps):
+    """K1 launches of one extractor pass: 32 in the UNet a step, one in each
+    VAE mid-block (the decoder runs its mid-block before its taps)."""
+    return {"K1": 32 * len(steps) + 2}
+
+
+def ddim_launches(steps):
+    """K1 launches of a guided DDIM loop: the UNet once a step on the
+    doubled batch, 32 each."""
+    return {"K1": 32 * steps}
+
+
+def features_error(got, ref):
+    """max |got - ref| / max(1, max|ref|) over a list of features."""
+    assert len(got) == len(ref), (len(got), len(ref))
+    worst = 0.0
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == tuple(r.shape), (tuple(g.shape), tuple(r.shape))
+        r = r.float().cpu()
+        worst = max(worst, (g.float().cpu() - r).abs().max().item() / max(1.0, r.abs().max().item()))
+    return worst
+
+
+def guided_unet(ex, cond, scale=7.5):
+    """An eps model (x, t) -> eps: ``ex``'s UNet under classifier-free
+    guidance with the [cond | uncond] contexts ``cond``."""
+    ld = LatentDiffusion(guidance_scale=scale)
+    return lambda x, t: ld.apply_model_with_guidence(lambda xx, tt, c: ex.unet(xx, tt, c)[0], x, t, cond)
+
+
+def check_ldm_toy():
+    """Phase 15 (a): the toy extractor, captioner and DDIM, CUDA (K1's fp32
+    body) against CPU (twins) from the same weights and draws, each path's
+    K1 launches counted."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    rows = {}
+
+    def pair(cls, **kw):
+        cpu = init_ldm_random_(cls(device="cpu", **TOY_LDM, **kw), gen)
+        cpu.shared_noise = torch.randn(1, 4, 16, 16, generator=gen)  # the 128x128 images' latent
+        with torch.no_grad():
+            cpu.uncond_inputs.copy_(torch.randn(cpu.uncond_inputs.shape, generator=gen))
+            for p in [m.alpha_cond_time for m in cpu.modules() if hasattr(m, "alpha_cond_time")]:
+                p.copy_(torch.randn(p.shape, generator=gen))  # 0 at init: the time lift would not move
+        cuda = cls(device="cuda", **TOY_LDM, **kw)
+        cuda.shared_noise = torch.empty_like(cpu.shared_noise, device="cuda")
+        cuda.load_state_dict(cpu.state_dict())
+        return cpu, cuda
+
+    def compare(name, run_cpu, run_cuda, expected, tol=LDM_TOL):
+        with torch.no_grad():
+            ref = run_cpu()
+            torch.cuda.synchronize()
+            reset_counts()
+            got = run_cuda()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        got, ref = (list(x) if isinstance(x, (list, tuple)) else [x] for x in (got, ref))
+        err = features_error(got, ref)
+        rows[name] = dict(err=err, launches=counts)
+        log(f"phase 15 toy {name}: CUDA against CPU {err:.3e} of max(1, max|ref|) (tol {tol:.3e}) "
+            f"over {len(got)} outputs; launches {counts} (expected {expected})")
+        if not err <= tol or counts != expected:
+            raise AssertionError(f"phase 15 toy {name}: error {err}, launches {counts}")
+
+    steps = (0, 100)
+    cpu, cuda = pair(LdmExtractor, steps=steps)
+    img = torch.rand(2, 128, 128, 3, generator=gen)
+    compare("extractor steps (0, 100), B=2", lambda: cpu(img), lambda: cuda(img.cuda()), ldm_launches(steps))
+    cond_emb = torch.randn(2, len(steps), 128, generator=gen)
+    ctx = torch.randn(2, 77, 768, generator=gen)
+    compare("extractor with cond_inputs and cond_emb", lambda: cpu(img, ctx, cond_emb),
+            lambda: cuda(img.cuda(), ctx.cuda(), cond_emb.cuda()), ldm_launches(steps))
+    cap_cpu, cap_cuda = pair(LdmImplicitCaptionerExtractor, vision=TOY_CLIP, ema=True)
+    for modal, ema in (("rgb", False), ("depth", True)):
+        compare(f"captioner '{modal}' ema_forward={ema}", lambda: cap_cpu(img, modal, ema),
+                lambda: cap_cuda(img.cuda(), modal, ema), ldm_launches((0,)))
+    diffusion = GaussianDiffusion.create(1000, "ldm_linear", "ddim4")
+    cond = torch.cat([torch.randn(1, 77, 768, generator=gen), cpu.uncond_inputs])
+    shape = (2, 4, 16, 16)
+    draws = [torch.randn(shape, generator=gen) for _ in range(diffusion.num_timesteps + 1)]
+    t = torch.full((2,), int(diffusion.timestep_map[-1]))
+    compare(f"guided eps at t={int(t[0])}", lambda: guided_unet(cpu, cond)(draws[0], t),
+            lambda: guided_unet(cuda, cond.cuda())(draws[0].cuda(), t.cuda()), ddim_launches(1))
+    # the first step's x0 carries the eps difference x (2 x guidance - 1) sqrt((1 - acp) / acp)
+    acp = diffusion.tables()[1][-1].item()
+    amplification = (2 * 7.5 - 1) * math.sqrt((1 - acp) / acp)
+    compare("DDIM 'ddim4', eta 0.5, guidance 7.5",
+            lambda: diffusion.ddim_sample_loop(guided_unet(cpu, cond), shape, eta=0.5, draws=draws),
+            lambda: diffusion.ddim_sample_loop(guided_unet(cuda, cond.cuda()), shape, eta=0.5,
+                                               draws=[d.cuda() for d in draws]),
+            ddim_launches(diffusion.num_timesteps), LDM_TOL * amplification)
+    return rows
+
+
+def check_flash_fp32(gen):
+    """K1's fp32 (SIMT) body against its twin at the eval pass's shapes (B=1,
+    the extractor's fp32 path): error, ms, twin ms, SDPA ms (TF32 off),
+    bound at the fp32 CUDA-core rate."""
+    rows = []
+    for sq, sk, h, d, per_pass in FLASH_SHAPES:
+        q, k, v = (torch.randn(1, s, h, d, device="cuda", generator=gen) for s in (sq, sk, sk))
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = attention_reference(q, k, v)
+        err = (out - ref).abs().max().item()
+        tol = LDM_TOL * max(1.0, ref.abs().max().item())
+        del ref
+        ms = cuda_ms(lambda: flash_attention(q, k, v))
+        plain = cuda_ms(lambda: attention_reference(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bnd, by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()), 4 * h * sq * sk * d, FP32_FLOP_PER_S)
+        rows.append(dict(shape=[1, sq, sk, h, d], per_pass=per_pass, max_abs_err=err, tol=tol, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by))
+        log(f"K1 fp32 body [B,Sq,Sk,H,D]=[1,{sq},{sk},{h},{d}] x{per_pass}/pass: max_abs_err={err:.3e} "
+            f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bnd:.5f} ({by})")
+        if not err <= tol:
+            raise AssertionError(f"K1 fp32 at {rows[-1]['shape']}: error {err} over tolerance {tol}")
+    total = {key: sum(r[key] * r["per_pass"] for r in rows) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"K1 fp32 body over one B=1 512x512 extractor pass at steps (0,) (34 calls): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
+    return rows, total
+
+
+def measure_ldm(name, fn, expected, card, check=None):
+    """One warm-up, one counted run of ``fn`` (its K1 launches must equal
+    ``expected``; ``check`` holds its output), then 3 timed runs: ms and
+    peak memory."""
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        outs = out if isinstance(out, list) else [out]
+        finite = all(torch.isfinite(o).all().item() for o in outs)
+        if check is not None:
+            check(outs)
+        del out, outs
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fn, reps=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 15 full width {name}: {ms:.2f} ms, peak memory {peak:.2f} GiB, launches {counts} "
+        f"(expected {expected}), finite {finite} [{card}]")
+    if counts != expected or not finite:
+        raise AssertionError(f"phase 15 {name}: launches {counts}, finite {finite}")
+    return dict(ms=ms, peak_gib=peak, launches=counts)
+
+
+def feature_shapes(ex, b):
+    """Each feature [B, feature_dims[i], 512 / feature_strides[i], ...]."""
+    def check(outs):
+        want = [(b, d, 512 // s, 512 // s) for d, s in zip(ex.feature_dims, ex.feature_strides)]
+        got = [tuple(o.shape) for o in outs]
+        if got != want:
+            raise AssertionError(f"feature shapes {got}, expected {want}")
+    return check
+
+
+def run_ldm_full(card):
+    """Phase 15 (b): the CompVis file round trip and the LDM passes at full
+    width on seeded weights."""
+    import tempfile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    writer = init_ldm_random_(LdmExtractor(device="cuda", **LDM_TAPS), gen)
+    text = {k.removeprefix("text_model."): v for k, v in clip_text_state(gen).items() if "position_ids" not in k}
+    model = LdmExtractor(device="cuda", **LDM_TAPS)
+    with tempfile.TemporaryDirectory(prefix="madm_ldm_") as tmp:
+        path = os.path.join(tmp, "sd-v1-seeded.ckpt")
+        t0 = time.perf_counter()
+        save_compvis_checkpoint(path, writer.unet.state_dict(), writer.vae.state_dict(), text, dtype=torch.float16)
+        t1 = time.perf_counter()
+        state = LdmCheckpointer(model).load(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        size = os.path.getsize(path)
+    own = model.state_dict()
+    mismatched = [f"{part}.{k}" for part in ("unet", "vae") for k, v in getattr(writer, part).state_dict().items()
+                  if not torch.equal(own[f"{part}.{k}"], v.half().float())]
+    mismatched += [f"clip_text.{k}" for k, v in text.items() if not torch.equal(state["clip_text"][k], v.half().float())]
+    n = sum(len(v) for v in state.values())
+    log(f"phase 15 CompVis .ckpt (fp16, UNet + VAE + CLIP text, {size / 2 ** 30:.2f} GiB): written in "
+        f"{t1 - t0:.1f} s, loaded through LdmCheckpointer in {t2 - t1:.1f} s; {n} tensors, "
+        f"{n - len(mismatched)} equal to the writer's fp16 rounding")
+    if mismatched or n != 686 + 248 + 196:
+        raise AssertionError(f"phase 15 CompVis load: {n} tensors, mismatched {mismatched[:10]}")
+    del writer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    images = {b: torch.rand(b, 512, 512, 3, device="cuda", generator=gen) for b in (1, 2)}
+    rows = {}
+    bf16 = LdmExtractor(device="cuda", compute_dtype=torch.bfloat16, **LDM_TAPS)
+    bf16.load_state_dict(model.state_dict())
+    for dtype, ex in (("fp32", model), ("bf16", bf16)):
+        for b, x in images.items():
+            rows[dtype, b] = measure_ldm(f"LdmExtractor {dtype} B={b} steps (0,)", lambda: ex(x),
+                                         ldm_launches(ex.steps), card, feature_shapes(ex, b))
+        ex.steps = (0, 100)
+        rows[dtype, "steps"] = measure_ldm(f"LdmExtractor {dtype} B=1 steps (0, 100)", lambda: ex(images[1]),
+                                           ldm_launches(ex.steps), card, feature_shapes(ex, 1))
+        ex.steps = (0,)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = init_ldm_random_(LdmImplicitCaptionerExtractor(device="cuda", compute_dtype=torch.bfloat16, **LDM_TAPS),
+                           gen)
+    cap.load_state_dict(bf16.state_dict(), strict=False)
+    tower = sum(p.numel() for p in cap.clip_vision.parameters())
+    rows["captioner"] = measure_ldm(f"captioner (ViT-L/14-336 tower, {tower / 1e6:.1f} M, fp32) bf16 B=1 'depth'",
+                                    lambda: cap(images[1], "depth"), ldm_launches(cap.steps), card,
+                                    feature_shapes(cap, 1))
+    del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    diffusion = GaussianDiffusion.create(1000, "ldm_linear", "ddim4")
+    cond = torch.cat([torch.randn(1, 77, 768, device="cuda", generator=gen), bf16.uncond_inputs])
+
+    def ddim():
+        return diffusion.ddim_sample_loop(guided_unet(bf16, cond), (2, 4, 64, 64),
+                                          torch.Generator(device="cuda").manual_seed(SEED + 42), device="cuda")
+
+    def ddim_shape(outs):
+        if tuple(outs[0].shape) != (2, 4, 64, 64):
+            raise AssertionError(f"DDIM sample {tuple(outs[0].shape)}")
+
+    rows["ddim"] = measure_ldm("DDIM 'ddim4' bf16, latent [1,4,64,64] with guidance", ddim,
+                               ddim_launches(diffusion.num_timesteps), card, ddim_shape)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_native(card, cli):
+    """Phase 15 (c): the native decoder built from ``native/madm_data.cpp``
+    against PIL on phase 9's synthetic PNGs (decode exact, bilinear within 1,
+    nearest exact), its host ms against PIL's; and phase 9's decoder (``cli``,
+    ``run_cli``'s result, if given).  The build must succeed where the
+    compiler finds png.h and jpeglib.h."""
+    import tempfile
+    from pathlib import Path
+
+    from PIL import Image
+
+    if cli is not None:
+        log(f"phase 15 phase 9's CLI decoded with {cli['decoder']}: data_time "
+            f"{', '.join(f'{s:.3f}' for s in cli['data_time'])} s, s/iter "
+            f"{', '.join(f'{s:.3f}' for s in cli['iter_s'])}")
+    if not native.headers_found():
+        log("phase 15 native decoder: png.h and jpeglib.h not found on this machine: not built, PIL decodes")
+        return None
+    t0 = time.perf_counter()
+    lib = native.build()
+    built = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError(f"phase 15 native decoder built at {lib} but did not load: {native.error}")
+    with tempfile.TemporaryDirectory(prefix="madm_native_") as tmp:
+        root = Path(tmp)
+        write_png_dataset(root, n=2)
+        worst, native_ms, pil_ms = 0, [], []
+        for name in ("src0.png", "tgt1.png", "lbl0.png"):
+            path = str(root / name)
+            arr = np.array(Image.open(path))
+            label = arr.ndim == 2
+            out_c = 1 if label else 3
+            full = native.load(path, out_c=out_c)[..., 0] if label else native.load(path)
+            if not np.array_equal(full, arr):
+                raise AssertionError(f"phase 15 native decode of {name} differs from PIL's")
+            kw = dict(resize_wh=(512, 256), crop=(64, 32, 384, 192), flip=True)
+            t0 = time.perf_counter()
+            got = native.load(path, nearest=label, out_c=out_c, **kw)
+            native_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            img = Image.open(path).resize(kw["resize_wh"], Image.NEAREST if label else Image.BILINEAR)
+            ref = np.array(img.crop((64, 32, 448, 224)).transpose(Image.FLIP_LEFT_RIGHT))
+            pil_ms.append((time.perf_counter() - t0) * 1e3)
+            diff = np.abs(got[..., 0].astype(int) - ref if label else got.astype(int) - ref).max()
+            if diff > (0 if label else 1):
+                raise AssertionError(f"phase 15 native resize of {name}: {diff} from PIL's")
+            worst = max(worst, int(diff))
+    log(f"phase 15 native decoder: built in {built:.1f} s ({lib.name}); 512x1024 PNGs decoded equal to PIL's, "
+        f"resized (bilinear, nearest for labels), cropped and flipped within {worst} of PIL's; host ms an image "
+        f"{', '.join(f'{m:.1f}' for m in native_ms)} native, {', '.join(f'{m:.1f}' for m in pil_ms)} PIL")
+    return dict(native_ms=native_ms, pil_ms=pil_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs a GPU",
@@ -2597,7 +2922,7 @@ def main() -> int:
     phase_done("7 (full-width train, flash_pack)")
     gc.collect()
     torch.cuda.empty_cache()
-    run_cli(card)
+    cli = run_cli(card)
     phase_done("9 (the CLI)")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2636,6 +2961,15 @@ def main() -> int:
     phase_done("14 (a) (the CLIP prefix's toy model, CUDA against CPU)")
     run_clip_full(card)
     phase_done("14 (b) (the ViT-L/14-336 prefix at full width)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_ldm_toy()
+    phase_done("15 (a) (the LDM path's toy extractor, captioner and DDIM, CUDA against CPU)")
+    flash32_rows, flash32 = check_flash_fp32(gen)
+    run_ldm_full(card)
+    phase_done("15 (b) (K1's fp32 body, the CompVis file, the LDM passes at full width)")
+    check_native(card, cli)
+    phase_done("15 (c) (the native decoder)")
 
     def per_pass(key):
         return sum(r[key] * r["per_pass"] for r in flash_rows if r["shape"][0] == 1)
@@ -2657,7 +2991,9 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
          "ms": per_pass("ms"), "plain_ms": per_pass("plain_ms"), "bound_ms": per_pass("bound_ms"),
          "bound_by": bound_ms(k1_b, k1_f)[1], "library_ms": per_pass("library_ms"),
-         "per": "one 512x512 pass at B=1 (sum over its 34 calls)", "shapes": flash_rows},
+         "per": "one 512x512 pass at B=1 (sum over its 34 calls)", "shapes": flash_rows,
+         "fp32_body": dict(flash32, per="one B=1 512x512 LdmExtractor pass at steps (0,) in fp32 "
+                                        "(its 34 calls)", shapes=flash32_rows)},
         {"name": "aspp_fused", "route": "cuda", "source": "madm_torch/csrc/aspp_fused.cu",
          "replaces": "madm_tpu/ops/aspp.py:208", "launches": eval_counts["aspp"]["K2"],
          "max_abs_err": max(r["max_abs_err"] for r in aspp_rows),

@@ -11,9 +11,11 @@ Two families of files (SURVEY.md §7):
     frozen VAE is not in it and comes from the snapshot (the ignored-keys
     contract of ``odise_checkpointer.py:45-102``);
 
-and the CLIP image tower of ``clip_state`` from an HF
+the CLIP image tower of ``clip_state`` from an HF
 ``CLIPVisionModel(WithProjection)`` state dict (``convert_clip_vision_state``,
-``load_clip_vision``).
+``load_clip_vision``), and (c) a raw CompVis ``sd-v1-*.ckpt`` for the LDM
+extractors (``load_compvis_checkpoint``, ``LdmCheckpointer``; the
+reference's ``odise_checkpointer.py:114-124``).
 
 The port keeps diffusers' and the reference's key names, so where the JAX
 converter transposes layouts and renames leaves, this one rewrites key
@@ -52,6 +54,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..models.clip_image import CLIPVisionTransformer, VisionConfig
+from ..models.clip_text import _text_state
 
 logger = logging.getLogger(__name__)
 
@@ -180,6 +183,249 @@ def snapshot_state_dict(snapshot: Mapping[str, Mapping[str, torch.Tensor]]) -> D
     """The VAE and UNet of ``load_sd_snapshot``'s result under ``MADM``'s
     keys (``vae.*``, ``unet.*``), for ``merge_into_model``."""
     return {f"{part}.{k}": v for part in ("vae", "unet") for k, v in snapshot[part].items()}
+
+
+# --------------------------------------------------- CompVis .ckpt support
+# A raw SD checkpoint stores a 'state_dict' with model.diffusion_model /
+# first_stage_model / cond_stage_model.transformer prefixes; its keys are
+# renamed to the diffusers layout the port's modules keep (JAX
+# ``_compvis_unet_key`` / ``_compvis_vae_key``).
+
+def _compvis_unet_key(key: str) -> Optional[str]:
+    """'model.diffusion_model.X' (prefix stripped) -> the UNet's key, None
+    for the parts the port does not hold (``label_emb``)."""
+    if key.startswith("time_embed."):
+        return key.replace("time_embed.0.", "time_embedding.linear_1.").replace(
+            "time_embed.2.", "time_embedding.linear_2.")
+    for src, dst in (("input_blocks.0.0.", "conv_in."), ("out.0.", "conv_norm_out."),
+                     ("out.2.", "conv_out.")):
+        if key.startswith(src):
+            return key.replace(src, dst)
+
+    def resnet(rest: str) -> str:
+        for src, dst in (("in_layers.0.", "norm1."), ("in_layers.2.", "conv1."),
+                         ("emb_layers.1.", "time_emb_proj."), ("out_layers.0.", "norm2."),
+                         ("out_layers.3.", "conv2."), ("skip_connection.", "conv_shortcut.")):
+            rest = rest.replace(src, dst)
+        return rest
+
+    if key.startswith("input_blocks."):
+        _, n, m, rest = key.split(".", 3)
+        i, j = (int(n) - 1) // 3, (int(n) - 1) % 3
+        if j == 2:  # the downsample block's 'op' conv
+            return f"down_blocks.{i}.downsamplers.0.conv.{rest.removeprefix('op.')}"
+        if m == "0":
+            return f"down_blocks.{i}.resnets.{j}.{resnet(rest)}"
+        return f"down_blocks.{i}.attentions.{j}.{rest}"
+    if key.startswith("middle_block."):
+        _, m, rest = key.split(".", 2)
+        if m == "1":
+            return f"mid_block.attentions.0.{rest}"
+        return f"mid_block.resnets.{0 if m == '0' else 1}.{resnet(rest)}"
+    if key.startswith("output_blocks."):
+        _, n, m, rest = key.split(".", 3)
+        i, j = int(n) // 3, int(n) % 3
+        if m == "0":
+            return f"up_blocks.{i}.resnets.{j}.{resnet(rest)}"
+        # slot 1 is the attention but in up block 0 (no attention), where it
+        # is the upsampler; slot 2 is always the upsampler
+        if rest.startswith("conv.") and (m == "2" or i == 0):
+            return f"up_blocks.{i}.upsamplers.0.{rest}"
+        return f"up_blocks.{i}.attentions.{j}.{rest}"
+    return None
+
+
+def _compvis_vae_key(key: str) -> Optional[str]:
+    """'first_stage_model.X' (prefix stripped) -> the ``AutoencoderKL``
+    key, None for the parts it does not hold (a training loss)."""
+    def resnet(rest: str) -> str:
+        return rest.replace("nin_shortcut.", "conv_shortcut.")
+
+    def attn(rest: str) -> str:
+        for src, dst in (("norm.", "group_norm."), ("q.", "to_q."), ("k.", "to_k."),
+                         ("v.", "to_v."), ("proj_out.", "to_out.0.")):
+            rest = rest.replace(src, dst)
+        return rest
+
+    if key.startswith(("quant_conv.", "post_quant_conv.")):
+        return key
+    side, _, rest = key.partition(".")
+    if side not in ("encoder", "decoder"):
+        return None
+    p = side + "."
+    if rest.startswith(("conv_in.", "conv_out.")):
+        return key
+    if rest.startswith("norm_out."):
+        return p + "conv_norm_out." + rest[len("norm_out."):]
+    if rest.startswith("mid."):
+        sub = rest[len("mid."):]
+        if sub.startswith("block_1."):
+            return p + "mid_block.resnets.0." + resnet(sub[len("block_1."):])
+        if sub.startswith("block_2."):
+            return p + "mid_block.resnets.1." + resnet(sub[len("block_2."):])
+        if sub.startswith("attn_1."):
+            return p + "mid_block.attentions.0." + attn(sub[len("attn_1."):])
+    if side == "encoder" and rest.startswith("down."):
+        _, lvl, kind, remainder = rest.split(".", 3)
+        if kind == "block":
+            j, r2 = remainder.split(".", 1)
+            return f"encoder.down_blocks.{lvl}.resnets.{j}.{resnet(r2)}"
+        if kind == "downsample":
+            return f"encoder.down_blocks.{lvl}.downsamplers.0.{remainder}"
+    if side == "decoder" and rest.startswith("up."):
+        _, lvl, kind, remainder = rest.split(".", 3)
+        i = 3 - int(lvl)  # CompVis level 0 is the highest resolution, up_blocks run lowest first
+        if kind == "block":
+            j, r2 = remainder.split(".", 1)
+            return f"decoder.up_blocks.{i}.resnets.{j}.{resnet(r2)}"
+        if kind == "upsample":
+            return f"decoder.up_blocks.{i}.upsamplers.0.{remainder}"
+    return None
+
+
+def convert_compvis_state(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A CompVis SD state dict -> ``{'unet', 'vae', 'clip_text'}`` state
+    dicts in the port's names (``UNet2DCondition``, ``AutoencoderKL`` with
+    the VAE attention's 1x1 convs as linears, ``CLIPTextTransformer``),
+    each present when the file has it; ``snapshot_state_dict`` prefixes the
+    first two for a model."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {"unet": {}, "vae": {}, "clip_text": {}}
+    for key, w in sd.items():
+        w = torch.as_tensor(w)
+        if key.startswith("model.diffusion_model."):
+            new = _compvis_unet_key(key[len("model.diffusion_model."):])
+            if new is not None:
+                out["unet"][new] = w
+        elif key.startswith("first_stage_model."):
+            new = _compvis_vae_key(key[len("first_stage_model."):])
+            if new is not None:
+                if ".attentions.0.to_" in new and w.ndim == 4:
+                    w = w.reshape(w.shape[0], w.shape[1])  # 1x1 conv -> linear
+                out["vae"][new] = w
+        elif key.startswith("cond_stage_model.transformer."):
+            out["clip_text"][key[len("cond_stage_model.transformer."):]] = w
+    out["clip_text"] = _text_state(out["clip_text"])
+    return {k: v for k, v in out.items() if v}
+
+
+def load_compvis_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A raw CompVis ``sd-v1-*.ckpt`` (``{'state_dict': ...}``) converted by
+    ``convert_compvis_state``, floats in fp32.  The file is unpickled with
+    ``weights_only=True``: a Lightning checkpoint that pickles objects other
+    than tensors and plain containers raises (the JAX package unpickles
+    anything)."""
+    return convert_compvis_state(load_torch_file(path))
+
+
+def _to_compvis_unet(key: str) -> str:
+    """The inverse of ``_compvis_unet_key``."""
+    def resnet(rest: str) -> str:
+        for src, dst in (("norm1.", "in_layers.0."), ("conv1.", "in_layers.2."),
+                         ("time_emb_proj.", "emb_layers.1."), ("norm2.", "out_layers.0."),
+                         ("conv2.", "out_layers.3."), ("conv_shortcut.", "skip_connection.")):
+            if rest.startswith(src):
+                return dst + rest[len(src):]
+        return rest
+
+    for src, dst in (("time_embedding.linear_1.", "time_embed.0."), ("time_embedding.linear_2.", "time_embed.2."),
+                     ("conv_in.", "input_blocks.0.0."), ("conv_norm_out.", "out.0."), ("conv_out.", "out.2.")):
+        if key.startswith(src):
+            return dst + key[len(src):]
+    m = re.fullmatch(r"(down_blocks|up_blocks)\.(\d+)\.(resnets|attentions|downsamplers|upsamplers)\.(\d+)\.(.+)", key)
+    if m:
+        blocks, i, kind, j, rest = m.group(1), int(m.group(2)), m.group(3), int(m.group(4)), m.group(5)
+        if blocks == "down_blocks":
+            if kind == "downsamplers":
+                return f"input_blocks.{3 * i + 3}.0.op.{rest.removeprefix('conv.')}"
+            n = 3 * i + j + 1
+            return f"input_blocks.{n}.0.{resnet(rest)}" if kind == "resnets" else f"input_blocks.{n}.1.{rest}"
+        if kind == "upsamplers":
+            return f"output_blocks.{3 * i + 2}.{1 if i == 0 else 2}.{rest}"
+        n = 3 * i + j
+        return f"output_blocks.{n}.0.{resnet(rest)}" if kind == "resnets" else f"output_blocks.{n}.1.{rest}"
+    m = re.fullmatch(r"mid_block\.(resnets|attentions)\.(\d)\.(.+)", key)
+    if m:
+        if m.group(1) == "attentions":
+            return f"middle_block.1.{m.group(3)}"
+        return f"middle_block.{2 * int(m.group(2))}.{resnet(m.group(3))}"
+    raise KeyError(f"no CompVis name for UNet key {key}")
+
+
+def _to_compvis_vae(key: str) -> str:
+    """The inverse of ``_compvis_vae_key``."""
+    if key.startswith(("quant_conv.", "post_quant_conv.")):
+        return key
+    side, _, rest = key.partition(".")
+    if rest.startswith(("conv_in.", "conv_out.")):
+        return key
+    if rest.startswith("conv_norm_out."):
+        return f"{side}.norm_out.{rest[len('conv_norm_out.'):]}"
+    rest = rest.replace("conv_shortcut.", "nin_shortcut.")
+    m = re.fullmatch(r"mid_block\.(resnets|attentions)\.(\d)\.(.+)", rest)
+    if m:
+        if m.group(1) == "resnets":
+            return f"{side}.mid.block_{int(m.group(2)) + 1}.{m.group(3)}"
+        sub = m.group(3)
+        for src, dst in (("group_norm.", "norm."), ("to_q.", "q."), ("to_k.", "k."), ("to_v.", "v."),
+                         ("to_out.0.", "proj_out.")):
+            if sub.startswith(src):
+                return f"{side}.mid.attn_1.{dst}{sub[len(src):]}"
+    m = re.fullmatch(r"(down_blocks|up_blocks)\.(\d+)\.(resnets|downsamplers|upsamplers)\.(\d+)\.(.+)", rest)
+    if m:
+        lvl = int(m.group(2)) if side == "encoder" else 3 - int(m.group(2))
+        level = "down" if side == "encoder" else "up"
+        if m.group(3) == "resnets":
+            return f"{side}.{level}.{lvl}.block.{m.group(4)}.{m.group(5)}"
+        return f"{side}.{level}.{lvl}.{level}sample.{m.group(5)}"
+    raise KeyError(f"no CompVis name for VAE key {key}")
+
+
+def compvis_state_dict(unet: Mapping[str, torch.Tensor], vae: Mapping[str, torch.Tensor],
+                       clip_text: Optional[Mapping[str, torch.Tensor]] = None,
+                       dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """The port's UNet, VAE (``AutoencoderKL``) and text-encoder
+    (``CLIPTextTransformer``) state dicts under a CompVis SD checkpoint's
+    names, the VAE attention's linears as 1x1 convs, floats cast to
+    ``dtype`` when given: the inverse of ``convert_compvis_state``."""
+    out = {}
+
+    def put(name, w):
+        w = w.detach().cpu()
+        out[name] = w.to(dtype) if dtype is not None and w.is_floating_point() else w
+
+    for k, w in unet.items():
+        put("model.diffusion_model." + _to_compvis_unet(k), w)
+    for k, w in vae.items():
+        if ".attentions.0.to_" in k and w.ndim == 2:
+            w = w[:, :, None, None]
+        put("first_stage_model." + _to_compvis_vae(k), w)
+    for k, w in (clip_text or {}).items():
+        put("cond_stage_model.transformer.text_model." + k, w)
+    return out
+
+
+def save_compvis_checkpoint(path: str, unet: Mapping[str, torch.Tensor], vae: Mapping[str, torch.Tensor],
+                            clip_text: Optional[Mapping[str, torch.Tensor]] = None,
+                            dtype: Optional[torch.dtype] = None) -> None:
+    """Write ``compvis_state_dict``'s tensors as a CompVis ``.ckpt``:
+    ``{'state_dict': ..., 'global_step': 0}``."""
+    torch.save({"state_dict": compvis_state_dict(unet, vae, clip_text, dtype), "global_step": 0}, path)
+
+
+class LdmCheckpointer:
+    """The reference's ``LdmCheckpointer`` (``odise_checkpointer.py:
+    114-124``) by name: ``load(path)`` returns ``load_compvis_checkpoint``'s
+    state dicts, and given a ``model`` (an ``LdmExtractor``, or anything
+    with ``vae`` and ``unet``) also copies the VAE and UNet into it."""
+
+    def __init__(self, model: Optional[nn.Module] = None):
+        self.model = model
+
+    def load(self, path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+        state = load_compvis_checkpoint(path)
+        if self.model is not None:
+            merge_into_model(self.model, snapshot_state_dict(state))
+        return state
 
 
 # ------------------------------------------------------------ CLIP vision

@@ -13,7 +13,11 @@ Besides ``params`` (the LoRA adapters ``params['lora']`` among them) and
 ``state.ema_head_bn``; and the variants' trees: the second head
 (``params.head_sec`` with ``state.head_sec_bn``), the pixel-unshuffle tower,
 the ISA fuse layer, per-layer prompts, the CLIP tower ``params.clip_vision``
-and the prefix prompts' ``PositionalLinear`` lifts.  Reads nested dicts of arrays (anything
+and the prefix prompts' ``PositionalLinear`` lifts; and the LDM extractors'
+tree (``madm_tpu/models/ldm_extractor.py``: ``params.vae_encoder``,
+``vae_decoder``, ``unet``, ``clip_vision``, ``clip_project_rgb``,
+``clip_project_others``, ``ema.ema_clip_project_*``, ``consts.shared_noise``
+when not None, ``uncond_inputs``).  Reads nested dicts of arrays (anything
 ``numpy.asarray`` takes); imports nothing of the JAX package.
 
 Layout transforms (JAX -> torch):
@@ -177,6 +181,9 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out.update(_lora(params.get("lora", {})))
     for domain, p in params.get("prompt", {}).items():
         out.update(_prompt(p, f"prompt.{domain}"))
+    for domain in ("clip_project_rgb", "clip_project_others"):  # the LDM captioner's sets
+        if domain in params:
+            out.update(_prompt(params[domain], domain))
     if "projections" in params:
         out.update(_projections(params["projections"]))
     if "head" in params:
@@ -199,9 +206,12 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_prompt(ema["clip_project_others"], "ema.clip_project_others"))
     if "clip_vision" in ema:
         out.update(_clip_vision(ema["clip_vision"], "ema.clip_vision"))
+    for domain in ("clip_project_rgb", "clip_project_others"):
+        if f"ema_{domain}" in ema:
+            out.update(_prompt(ema[f"ema_{domain}"], f"ema.{domain}"))
     consts = variables.get("consts", {})
     if "uncond_inputs" in consts:
         out["uncond_inputs"] = np.asarray(consts["uncond_inputs"], np.float32)
-    if "shared_noise" in consts:  # NHWC -> NCHW
+    if consts.get("shared_noise") is not None:  # NHWC -> NCHW
         out["shared_noise"] = np.asarray(consts["shared_noise"], np.float32).transpose(0, 3, 1, 2)
     return {k: torch.tensor(v) for k, v in out.items()}

@@ -1,5 +1,5 @@
 """CrossModalityDataset: paired source/target dataset + rare-class sampling
-(port of ``madm_tpu/data/dataset.py``, its PIL path).
+(port of ``madm_tpu/data/dataset.py``).
 
 Host-side re-implementation of ``data/dataset/cross_modality_dataset.py``
 (PIL + numpy).  Semantics preserved:
@@ -31,8 +31,11 @@ edge texture); ``pl_data_path`` adds 'source_pl_data' with the source's
 crop and flip; ``merge_more_target_data`` appends a target subdirectory's
 images.
 
-Images decode with PIL only (the JAX package also has a native C++ decoder,
-whose resampling differs).
+Images decode with the native C++ decoder (``native``: decode, resample,
+crop and flip in one call) where it builds and loads, else with PIL, as the
+JAX package chooses; the two resample bilinear images within 1 of each
+other on [0, 255] (labels, nearest, exactly alike).  The dataset logs
+which one it uses.
 
 Output layout is **NHWC float32 in [0, 255]** (converted to [0,1] by the
 loader), labels [H, W] int32.
@@ -50,6 +53,7 @@ import numpy as np
 from PIL import Image
 
 from ..ops.fda import extract_edge_info_local, remove_array_amp
+from . import native
 
 logger = logging.getLogger(__name__)
 
@@ -169,6 +173,7 @@ class CrossModalityDataset:
 
         if self.rare_class_sample:
             self._init_rcs()
+        logger.info(f"{type(self).__name__} ({train_or_test}) decodes images with {native.decoder_name()}")
 
     # ------------------------------------------------------------------ RCS
     def _init_rcs(self):
@@ -198,6 +203,11 @@ class CrossModalityDataset:
     def _load(
         self, path, resize_wh=None, crop=None, flip=False, is_label=False,
     ) -> np.ndarray:
+        if native.available():
+            arr = native.load(path, resize_wh, crop, flip, nearest=is_label, out_c=1 if is_label else 3)
+            if is_label:
+                return self._deliver_shift(arr[..., 0].astype(np.int32))
+            return arr.astype(np.float32)
         img = Image.open(path)
         if resize_wh is not None:
             img = img.resize(resize_wh, Image.NEAREST if is_label else Image.BILINEAR)
@@ -210,18 +220,21 @@ class CrossModalityDataset:
         if is_label:
             if arr.ndim == 3:
                 arr = arr[..., 0]
-            arr = arr.astype(np.int32)
-            if self.deliver_label_process:
-                mask = arr == IGNORE_LABEL
-                arr = arr - 1
-                arr[mask] = IGNORE_LABEL
-            return arr
+            return self._deliver_shift(arr.astype(np.int32))
         # data: HWC float32 0..255, force 3 channels
         if arr.ndim == 2:
             arr = np.repeat(arr[..., None], 3, axis=-1)
         elif arr.shape[-1] == 4:
             arr = arr[..., :3]
         return arr.astype(np.float32)
+
+    def _deliver_shift(self, label: np.ndarray) -> np.ndarray:
+        """DELIVER label ids -1, 255 kept (reference ``:184-188``)."""
+        if self.deliver_label_process:
+            mask = label == IGNORE_LABEL
+            label = label - 1
+            label[mask] = IGNORE_LABEL
+        return label
 
     def _convert_label(self, label: np.ndarray) -> np.ndarray:
         if self._label_lut is None:

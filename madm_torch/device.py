@@ -2,7 +2,8 @@
 
 Every entry point takes ``device=`` (default ``"cuda"``).  A CUDA device on
 a host without one is an error, never a silent move to the CPU: the CPU runs
-only when the caller asks for it.
+only when the caller asks for it.  ``"meta"`` builds a model's shapes
+without its data (its layout, its names, its metadata).
 """
 
 from __future__ import annotations
@@ -29,6 +30,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device={str(device)!r} asks for CUDA but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(device)!r}: use 'cuda', 'cpu' or 'meta'")
     return dev

@@ -823,21 +823,15 @@ def _ids_from_logits(logits: torch.Tensor, hw) -> torch.Tensor:
     return argmax_classes(logits)
 
 
-def init_random_(model: MADM, generator: torch.Generator) -> MADM:
-    """Seeded random weights, for running without a checkpoint: convs and
-    linears N(0, 1/fan_in) with zero bias, norms at identity, BN statistics
-    (0, 1), conv_seg N(0, 0.01^2), prompt and time embeds N(0, 0.02^2),
-    prompt blend weights U[0, 1), time blend weight 0, the prefix lifts'
-    and the CLIP tower's positional tables and class token N(0, 0.02^2),
-    the pixel-unshuffle tower's BN at identity, LoRA adapters at peft's
-    init (A ~ N(0, 1) / rank, B = 0).  The second head and a trainable
-    model's teacher start as copies of the student's.  ``generator`` must
-    live on the model's device."""
+def init_modules_(root: nn.Module, generator: torch.Generator) -> None:
+    """``init_random_``'s draws over every module of ``root`` outside its
+    ``ema`` tree, in module order (``madm_torch.models.ldm_extractor``'s
+    seeded init takes them too)."""
     def normal(t, std):
         t.copy_(torch.randn(t.shape, generator=generator, device=t.device, dtype=torch.float32) * std)
 
     with torch.no_grad():
-        for name, m in model.named_modules():
+        for name, m in root.named_modules():
             if name.startswith("ema"):
                 continue
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -871,6 +865,20 @@ def init_random_(model: MADM, generator: torch.Generator) -> MADM:
                     p.zero_()
             elif isinstance(m, lora_lib.LoRAAdapter):
                 lora_lib.reset_lora_(m, generator)
+
+
+def init_random_(model: MADM, generator: torch.Generator) -> MADM:
+    """Seeded random weights, for running without a checkpoint: convs and
+    linears N(0, 1/fan_in) with zero bias, norms at identity, BN statistics
+    (0, 1), conv_seg N(0, 0.01^2), prompt and time embeds N(0, 0.02^2),
+    prompt blend weights U[0, 1), time blend weight 0, the prefix lifts'
+    and the CLIP tower's positional tables and class token N(0, 0.02^2),
+    the pixel-unshuffle tower's BN at identity, LoRA adapters at peft's
+    init (A ~ N(0, 1) / rank, B = 0).  The second head and a trainable
+    model's teacher start as copies of the student's.  ``generator`` must
+    live on the model's device."""
+    init_modules_(model, generator)
+    with torch.no_grad():
         if model.cfg.sem_seg_head_sec_modal:  # the second head starts as a copy (JAX init_params)
             model.sem_seg_head_sec_modal.load_state_dict(model.sem_seg_head.state_dict())
         if hasattr(model, "ema"):

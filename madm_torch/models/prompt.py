@@ -59,11 +59,12 @@ class ClipFeatureProject(nn.Module):
     (``without_prompt_alpha``) no prompt blend weights; an absent
     parameter is ``None``.  ``in_features`` (the CLIP prefix's width) puts
     ``prompt_embed_project`` and ``time_embed_project`` in place of
-    ``prompt_embed`` and ``time_embed``."""
+    ``prompt_embed`` and ``time_embed``; the time lift gives
+    ``time_seq_len`` rows (the LDM captioner's ``num_timesteps``)."""
 
     def __init__(self, time_embed_dim: int = TIME_EMBED_DIM, seq_len: int = PROMPT_SEQ_LEN,
                  multi_layer: bool = False, learnable: bool = True, alpha: bool = True,
-                 in_features: Optional[int] = None):
+                 in_features: Optional[int] = None, time_seq_len: int = 1):
         super().__init__()
         if in_features is not None and multi_layer and learnable:
             raise ValueError("multi_layer_prompt is incompatible with clip_state prefixes "
@@ -81,7 +82,8 @@ class ClipFeatureProject(nn.Module):
         self.alpha_cond_time = param(time_embed_dim, on=learnable)
         self.prompt_embed_project = (PositionalLinear(in_features, PROMPT_DIM, seq_len)
                                      if prefixed else None)
-        self.time_embed_project = PositionalLinear(in_features, time_embed_dim, 1) if prefixed else None
+        self.time_embed_project = (PositionalLinear(in_features, time_embed_dim, time_seq_len)
+                                   if prefixed else None)
 
 
 def resize_prompt(prompt: torch.Tensor, seq_len: int, antialias: bool = False) -> torch.Tensor:

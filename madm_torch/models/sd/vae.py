@@ -6,11 +6,20 @@ modules keep diffusers' ``AutoencoderKL`` layout (``encoder``, ``decoder``,
 ``quant_conv``, ``post_quant_conv``) so a diffusers VAE state dict loads
 as is, and ``AutoencoderKL.encode`` / ``decode`` compute what the JAX
 ``Encoder`` / ``Decoder`` compute.  NCHW; images in [-1, 1].
+
+Feature taps (the LDM extractor's, ``models/ldm_extractor.py``): the
+encoder's ``encoder_block_indices`` count its resnets, 1-based after a
+resnet (``tap_type='after'``) or 0-based at a resnet's input ('in'); the
+decoder's ``decoder_block_indices`` count its resnets (3 a level) 0-based
+at a resnet's input.  ``encode_features`` / ``decode_features`` return the
+taps beside the latent / image; ``decode_features(..., output_final=False)``
+stops after the last resnet.  Without indices there are no taps, and
+``encode`` / ``decode`` are unchanged.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -61,10 +70,15 @@ class MidBlock2D(nn.Module):
 
 
 class Encoder(nn.Module):
-    """image [-1, 1] -> the 8-channel moments before ``quant_conv``."""
+    """image [-1, 1] -> (the 8-channel moments before ``quant_conv``, taps)."""
 
-    def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS):
+    def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS,
+                 encoder_block_indices: Sequence[int] = (), tap_type: str = "after"):
         super().__init__()
+        if tap_type not in ("in", "after"):
+            raise ValueError(f"tap_type {tap_type!r} is not 'in' or 'after'")
+        self.encoder_block_indices = tuple(encoder_block_indices)
+        self.tap_type = tap_type
         boc = tuple(block_out_channels)
         self.conv_in = nn.Conv2d(3, boc[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
@@ -82,22 +96,32 @@ class Encoder(nn.Module):
         self.conv_norm_out = GroupNorm(boc[-1], eps=1e-6, act="silu")
         self.conv_out = nn.Conv2d(boc[-1], 2 * LATENT_CHANNELS, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        feats = []
+        index = 0
         x = self.conv_in(x)
         for blk in self.down_blocks:
             for r in blk.resnets:
+                if self.tap_type == "in" and index in self.encoder_block_indices:
+                    feats.append(x)
                 x = r(x)
+                index += 1
+                if self.tap_type == "after" and index in self.encoder_block_indices:
+                    feats.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0](x)
         x = self.mid_block(x)
-        return self.conv_out(self.conv_norm_out(x))
+        return self.conv_out(self.conv_norm_out(x)), feats
 
 
 class Decoder(nn.Module):
-    """latent (after ``post_quant_conv``) -> RGB [-1, 1]."""
+    """latent (after ``post_quant_conv``) -> (RGB [-1, 1], or None without
+    ``output_final``; taps)."""
 
-    def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS):
+    def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS,
+                 decoder_block_indices: Sequence[int] = ()):
         super().__init__()
+        self.decoder_block_indices = tuple(decoder_block_indices)
         rev = tuple(reversed(tuple(block_out_channels)))
         self.conv_in = nn.Conv2d(LATENT_CHANNELS, rev[0], 3, padding=1)
         self.mid_block = MidBlock2D(rev[0])
@@ -116,28 +140,48 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(rev[-1], eps=1e-6, act="silu")
         self.conv_out = nn.Conv2d(rev[-1], 3, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, output_final: bool = True
+                ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+        feats = []
+        index = 0
         x = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             for r in blk.resnets:
+                if index in self.decoder_block_indices:
+                    feats.append(x)
+                index += 1
                 x = r(x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
-        return self.conv_out(self.conv_norm_out(x))
+        if not output_final:
+            return None, feats
+        return self.conv_out(self.conv_norm_out(x)), feats
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS):
+    def __init__(self, block_out_channels: Sequence[int] = BLOCK_OUT_CHANNELS,
+                 encoder_block_indices: Sequence[int] = (), tap_type: str = "after",
+                 decoder_block_indices: Sequence[int] = ()):
         super().__init__()
-        self.encoder = Encoder(block_out_channels)
-        self.decoder = Decoder(block_out_channels)
+        self.encoder = Encoder(block_out_channels, encoder_block_indices, tap_type)
+        self.decoder = Decoder(block_out_channels, decoder_block_indices)
         self.quant_conv = nn.Conv2d(2 * LATENT_CHANNELS, 2 * LATENT_CHANNELS, 1)
         self.post_quant_conv = nn.Conv2d(LATENT_CHANNELS, LATENT_CHANNELS, 1)
 
+    def encode_features(self, images: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """(deterministic latent: posterior mean x scaling factor, not a
+        sample; the encoder's taps)."""
+        moments, feats = self.encoder(images)
+        return self.quant_conv(moments)[:, :LATENT_CHANNELS] * SCALING_FACTOR, feats
+
+    def decode_features(self, latents: torch.Tensor, output_final: bool = True
+                        ) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+        """(RGB of a scaled latent, or None without ``output_final``; the
+        decoder's taps)."""
+        return self.decoder(self.post_quant_conv(latents / SCALING_FACTOR), output_final)
+
     def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """Deterministic latent: posterior mean x scaling factor (not a sample)."""
-        moments = self.quant_conv(self.encoder(images))
-        return moments[:, :LATENT_CHANNELS] * SCALING_FACTOR
+        return self.encode_features(images)[0]
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(latents / SCALING_FACTOR))
+        return self.decode_features(latents)[0]

@@ -16,6 +16,7 @@ import torch
 from PIL import Image
 
 import madm_tpu.data.native as jax_native
+import madm_torch.data.native as port_native
 import main as jax_main
 from madm_tpu.config import LazyConfig as JaxLazyConfig
 from madm_tpu.data import CrossModalityDataset as JaxDataset
@@ -65,6 +66,7 @@ def test_dataset_ablation_keys_equal_jax(name, ablation_root, monkeypatch):
     """The PIL path: the same samples, the new keys among them, for the same
     seed; and the first loader batches, the new keys stacked in [0, 1]."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     kw = _kwargs(ablation_root, name)
     base = _dataset_kwargs(ablation_root, "train")
     port, ref = CrossModalityDataset(**base, **kw), JaxDataset(**base, **kw)
@@ -87,6 +89,7 @@ def test_test_set_takes_fda_fusion_val(ablation_root, monkeypatch):
     """``--fda_fusion_val`` reaches the test set too (JAX ``main.py:334-336``),
     which keeps it and emits the same samples."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     base = _dataset_kwargs(ablation_root, "test")
     port, ref = (cls(**base, fda_fusion_val=[0.5]) for cls in (CrossModalityDataset, JaxDataset))
     for i in range(len(port)):

@@ -19,6 +19,7 @@ import torch
 from PIL import Image
 
 import madm_tpu.data.native as jax_native
+import madm_torch.data.native as port_native
 from madm_tpu.config import LazyConfig as JaxLazyConfig
 from madm_tpu.config import instantiate as jax_instantiate
 from madm_tpu.data import CrossModalityDataset as JaxDataset
@@ -240,9 +241,10 @@ def _same_sample(a, b):
 
 @pytest.mark.parametrize("mode", ["train", "test"])
 def test_dataset_and_loaders_equal_jax(mode, data_root, monkeypatch):
-    """The PIL path (the JAX decoder forced off): the same samples for the
+    """The PIL path (both packages' native decoders forced off): the same samples for the
     same seed, and the first 4 loader batches."""
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     port, ref = CrossModalityDataset(**_dataset_kwargs(data_root, mode)), JaxDataset(**_dataset_kwargs(data_root, mode))
     assert len(port) == len(ref)
     for i in range(len(port)):
@@ -507,6 +509,7 @@ def test_do_test_equals_jax(data_root, monkeypatch):
     from madm_torch.models.madm import init_random_
 
     monkeypatch.setattr(jax_native, "available", lambda: False)
+    monkeypatch.setattr(port_native, "available", lambda: False)
     preds = {"port": [], "jax": []}
     for cls, key in ((DSECSemSegEvaluator, "port"), (JaxEvaluator, "jax")):
         orig = cls.process
