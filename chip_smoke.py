@@ -135,8 +135,13 @@ Phases (each prints its lines; any failure raises and exits nonzero):
    (twins) from the same weights and draws, within 1e-4 of max(1,
    max|ref|) (the DDIM sample within that times the first step's
    amplification of an eps difference, (2 x 7.5 - 1) sqrt((1 - acp) / acp)
-   = 57.4); (b) K1's fp32 body against its twin at
-   the eval pass's shapes; an fp16 CompVis ``.ckpt`` of a seeded full-width
+   = 57.4); (b) K1's fp32 bodies: the 3xTF32 TMA body at the eval pass's
+   shapes at B=1 and B=2 against its twin and against
+   ``attention_tf32x3_reference`` (1e-4 of max(1, max|ref|)), its lse too,
+   each call's body (the library's counters) the one ``forward_plan`` names
+   and that plan the C library's; the SIMT body at a D % 4 != 0 shape and at
+   a misaligned base; ms, twin ms, SDPA ms (TF32 off), the bound at 495
+   TFLOP/s tf32 for three products a product and at 67 TFLOP/s fp32; an fp16 CompVis ``.ckpt`` of a seeded full-width
    UNet, VAE and CLIP text encoder, written and loaded through
    ``LdmCheckpointer`` equal to the writer tensor by tensor; ``LdmExtractor``
    with ODISE's taps (encoder 5, 7; UNet 2, 5, 8, 11; decoder 2, 5) on
@@ -206,6 +211,7 @@ from madm_torch.ops.aspp import (
 from madm_torch.ops.flash_attention import (
     attention_backward_reference,
     attention_reference,
+    attention_tf32x3_reference,
     backward_plan,
     flash_attention,
     flash_attention_backward,
@@ -234,6 +240,7 @@ from madm_torch.train.train_step import (
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12   # dense tensor-core bf16
 FP32_FLOP_PER_S = 67e12    # CUDA-core fp32 (no tensor-core form: depthwise taps, 11-class dots)
+TF32_FLOP_PER_S = 495e12   # dense tensor-core tf32 (K1's fp32 body: three tf32 products a product)
 SEED = 0
 
 # (Sq, Sk, H, D, launches per 512x512 pass): 16 self + 16 cross attentions
@@ -321,6 +328,23 @@ def reset_counts():
 def launch_counts():
     """Launches since ``reset_counts`` of every kernel that launched."""
     return {k: fn.launches for k, fn in COUNTERS.items() if fn.launches}
+
+
+# K1's bodies, in the order of its library's counters: fp32 SIMT (what TMA
+# cannot address), fp32 3xTF32 on TMA + wgmma, bf16 on TMA + wgmma
+FP32_BODIES = ("simt", "tma_tf32x3", "tma_wgmma")
+
+
+def body_counts():
+    """K1's launches of each body (``FP32_BODIES``) since its library loaded."""
+    out = (ctypes.c_longlong * 3)()
+    kernels.load("flash_attention").madm_flash_attention_body_counts(out)
+    return list(out)
+
+
+def bodies_since(before):
+    """K1's launches of each body since the counts ``before`` (``body_counts``)."""
+    return {n: a - b for n, a, b in zip(FP32_BODIES, body_counts(), before) if a != b}
 
 
 def plan_line(kind, b, sq, sk, h, d):
@@ -434,7 +458,7 @@ def report_builds(q):
                  "flash_attention_packed_bwd", "aspp_fused", "dw_branches", "matmul_argmax"):
         report = kernels.ptxas_report(name)
         for fn, regs, smem, st, ld in report:
-            if any(x in fn for x in ("tma", "bwd_prep", "reduce", "packed", "chain", "argmax")):
+            if any(x in fn for x in ("tma", "tf32", "bwd_prep", "reduce", "packed", "chain", "argmax")):
                 log(f"ptxas {name}: {fn}: {regs} registers, {smem} bytes static smem, "
                     f"spill stores {st} B, spill loads {ld} B")
             if any(x in fn for x in ("dw_chain", "argmax_wgmma")) and (st or ld):
@@ -1294,13 +1318,18 @@ def run_full(card):
         m32 = MADM(dataclasses.replace(cfg, compute_dtype=torch.float32, flash_pack=pack), device="cuda")
         m32.load_state_dict(model.state_dict())
         reset_counts()
+        before = body_counts()
         ids32[pack] = m32.eval_forward_ids(aspp_ids[1][0], eval_head="aspp")
         torch.cuda.synchronize()
         counts[pack, "fp32"] = launch_counts()
+        bodies = bodies_since(before)
+        if bodies != {"tma_tf32x3": counts[pack, "fp32"]["K1"]}:  # every fp32 K1 call on the 3xTF32 body
+            raise AssertionError(f"fp32 'aspp' pass (flash_pack={pack}): K1 bodies {bodies}")
         del m32
     agree = (ids32[True] == ids32[False]).double().mean().item()
     log(f"full width fp32 B=1 'aspp' head, flash_pack against not: ids equal on {agree:.6f} of pixels "
-        f"(tol 0.99); launches {counts[True, 'fp32']} and {counts[False, 'fp32']}")
+        f"(tol 0.99); launches {counts[True, 'fp32']} and {counts[False, 'fp32']}, all K1 calls on the "
+        f"3xTF32 body")
     if agree < 0.99 or counts[True, "fp32"] != PACKED_EVAL_LAUNCHES:
         raise AssertionError(f"fp32 flash_pack pass: ids agree on {agree}, launches {counts[True, 'fp32']}")
     torch.cuda.empty_cache()
@@ -2672,47 +2701,160 @@ def check_ldm_toy():
     return rows
 
 
-def check_flash_fp32(gen):
-    """K1's fp32 (SIMT) body against its twin at the eval pass's shapes (B=1,
-    the extractor's fp32 path): error, ms, twin ms, SDPA ms (TF32 off),
-    bound at the fp32 CUDA-core rate."""
-    rows = []
-    for sq, sk, h, d, per_pass in FLASH_SHAPES:
-        q, k, v = (torch.randn(1, s, h, d, device="cuda", generator=gen) for s in (sq, sk, sk))
-        out = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = attention_reference(q, k, v)
-        err = (out - ref).abs().max().item()
-        tol = LDM_TOL * max(1.0, ref.abs().max().item())
-        del ref
+# (B, Sq, Sk, H, D, fault, timed) of fp32 calls TMA cannot address: a head
+# dim off the 4-element grid, and q one element past an aligned base at the
+# SIMT body's instantiations for D <= 48, 160 and 512
+FP32_SIMT_CASES = ((1, 256, 77, 8, 34, "D % 4 != 0", True),
+                   (1, 1024, 1024, 8, 40, "q base misaligned by 4 bytes", True),
+                   (1, 256, 256, 8, 160, "q base misaligned by 4 bytes", False),
+                   (1, 1024, 1024, 1, 512, "q base misaligned by 4 bytes", False))
+# K1's fp32 TMA body against attention_tf32x3_reference (its own arithmetic
+# in plain torch), of max(1, max|ref|): 1e-5, where the body reads 2e-6 at
+# most and a body of one tf32 product a product (no lo pieces) fails
+TF32X3_TOL = 1e-5
+
+
+def f32_plan_line(b, sq, sk, h, d, tensors):
+    """K1's Python fp32 plan for tensors at (address, strides), held to the
+    one the C library computes; returns the plan and a short description."""
+    plan = forward_plan(b, sq, sk, h, d, torch.float32, tensors)
+    fn = kernels.load("flash_attention").madm_flash_attention_fwd_f32_plan
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 9
+                   + [ctypes.POINTER(ctypes.c_int)])
+    out = (ctypes.c_int * 9)()
+    nbytes = fn(b, sq, sk, h, d, *(p for p, _ in tensors), *(x for _, st in tensors for x in st), out)
+    if plan.body == "simt":
+        mine, theirs = [0], [out[0]]
+    else:
+        mine = [1, plan.dn, plan.bq, plan.bk, plan.warpgroups, int(plan.split_d), plan.stages, plan.nsplit,
+                plan.launches[0].smem, plan.workspace_bytes]
+        theirs = list(out) + [nbytes]
+    if mine != theirs:
+        raise AssertionError(f"K1 fp32 plan at {[b, sq, sk, h, d]}: Python {mine}, C {theirs}")
+    return plan, (f"{plan.body}: " + ", ".join(f"{l.kernel} grid {l.grid} x{l.threads} smem {l.smem}"
+                                             for l in plan.launches) + f", nsplit {plan.nsplit}")
+
+
+def fp32_row(q, k, v, per_pass, want, timed=True):
+    """One fp32 K1 call: the body it took (the library's counters) must be
+    ``want`` and the one ``forward_plan`` names; out and lse against the twin
+    within LDM_TOL of max(1, max|ref|) and, for the TMA body, against
+    ``attention_tf32x3_reference`` within TF32X3_TOL of it; where ``timed``,
+    ms, twin ms, SDPA ms (TF32 off); the bounds."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5
+    plan, line = f32_plan_line(b, sq, sk, h, d, [(t.data_ptr(), tuple(t.stride()[:3])) for t in (q, k, v)])
+    before = body_counts()
+    o, lse = flash_attention_forward(q, k, v, scale)
+    torch.cuda.synchronize()
+    took = bodies_since(before)
+    if not (took == {want: 1} and plan.body == want):
+        raise AssertionError(f"K1 fp32 at {[b, sq, sk, h, d]}: took {took}, planned {plan.body}, wanted {want}")
+    ref = attention_reference(q, k, v)
+    tol = LDM_TOL * max(1.0, ref.abs().max().item())
+    err = (o - ref).abs().max().item()
+    del ref
+    lse_ref = torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, -1)
+    lse_tol = LDM_TOL * max(1.0, lse_ref.abs().max().item())
+    lse_err = (lse - lse_ref).abs().max().item()
+    del lse_ref
+    err3 = lse3_err = tol3 = lse3_tol = None
+    if want == "tma_tf32x3":
+        o3, l3 = attention_tf32x3_reference(q, k, v, scale, plan.bk, plan.nsplit)
+        err3, lse3_err = (o - o3).abs().max().item(), (lse - l3).abs().max().item()
+        tol3 = TF32X3_TOL * max(1.0, o3.abs().max().item())
+        lse3_tol = TF32X3_TOL * max(1.0, l3.abs().max().item())
+        del o3, l3
+    ms = plain = lib = None
+    if timed:
         ms = cuda_ms(lambda: flash_attention(q, k, v))
         plain = cuda_ms(lambda: attention_reference(q, k, v))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # SDPA faults on a misaligned base: it gets aligned copies of the same layout
+        qt, kt, vt = (t.clone().transpose(1, 2) for t in (q, k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bnd, by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()), 4 * h * sq * sk * d, FP32_FLOP_PER_S)
-        rows.append(dict(shape=[1, sq, sk, h, d], per_pass=per_pass, max_abs_err=err, tol=tol, ms=ms,
-                         plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by))
-        log(f"K1 fp32 body [B,Sq,Sk,H,D]=[1,{sq},{sk},{h},{d}] x{per_pass}/pass: max_abs_err={err:.3e} "
-            f"(tol {tol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms={bnd:.5f} ({by})")
-        if not err <= tol:
-            raise AssertionError(f"K1 fp32 at {rows[-1]['shape']}: error {err} over tolerance {tol}")
-    total = {key: sum(r[key] * r["per_pass"] for r in rows) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    nbytes, flops = 4 * (2 * q.numel() + k.numel() + v.numel()), 4 * b * h * sq * sk * d
+    bnd, by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+    bnd_fp32 = bound_ms(nbytes, flops, FP32_FLOP_PER_S)[0]
+    row = dict(shape=[b, sq, sk, h, d], per_pass=per_pass, body=plan.body, max_abs_err=err, tol=tol,
+               tf32x3_err=err3, tf32x3_tol=tol3, lse_err=lse_err, lse_tol=lse_tol, tf32x3_lse_err=lse3_err,
+               tf32x3_lse_tol=lse3_tol, ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=bnd, bound_by=by, bound_fp32_ms=bnd_fp32)
+    log(f"K1 fp32 [B,Sq,Sk,H,D]=[{b},{sq},{sk},{h},{d}] x{per_pass}/pass: max_abs_err={err:.3e} (tol {tol:.3e})"
+        + ("" if err3 is None else f" against tf32x3 {err3:.3e} (tol {tol3:.3e}), lse {lse3_err:.3e} "
+           f"(tol {lse3_tol:.3e})")
+        + f" lse_err={lse_err:.3e} (tol {lse_tol:.3e})"
+        + (f" ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f}" if timed else "")
+        + f" bound_ms={bnd:.5f} ({by}, tf32 x3) bound_fp32_ms={bnd_fp32:.5f}; {line}")
+    if not (err <= tol and lse_err <= lse_tol and (err3 is None or (err3 <= tol3 and lse3_err <= lse3_tol))):
+        raise AssertionError(f"K1 fp32 at {row['shape']}: errors {err}, {err3}, lse {lse_err}, {lse3_err}")
+    return row
+
+
+def check_short_workspace(q, k, v):
+    """K1's C entry refuses an fp32 key-split workspace one byte shorter than
+    its plan's (cudaErrorInvalidValue, no body launched): a Python plan that
+    drifted from the C one raises instead of writing past its buffer."""
+    from madm_torch.ops import flash_attention as flash_ops
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    plan = forward_plan(b, sq, sk, h, d, torch.float32, [(t.data_ptr(), tuple(t.stride()[:3])) for t in (q, k, v)])
+    assert plan.nsplit > 1, plan
+    work, o = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device="cuda"), torch.empty_like(q)
+    _, fn = flash_ops._bind("flash_attention", "madm_flash_attention_fwd", flash_ops._FWD_ARGS)
+    before = body_counts()
+    err = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, work.data_ptr(),
+             plan.workspace_bytes - 1, b, sq, sk, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             *o.stride()[:3], d ** -0.5, torch.cuda.current_stream().cuda_stream)
+    took = bodies_since(before)
+    log(f"K1 fp32 at {[b, sq, sk, h, d]} with a workspace of {plan.workspace_bytes - 1} of its "
+        f"{plan.workspace_bytes} bytes: error {err} (cudaErrorInvalidValue is 1), bodies launched {took}")
+    if err != 1 or took:
+        raise AssertionError(f"K1 fp32 took a short workspace: error {err}, bodies {took}")
+
+
+def check_flash_fp32(gen):
+    """K1's fp32 bodies (phase 15 b): the 3xTF32 TMA body at the eval pass's
+    shapes at B=1 (timed) and B=2 (the extractor's fp32 path), then the SIMT
+    body where TMA cannot address the tensors (``fp32_row`` each), and a
+    short key-split workspace refused; the B=1 rows summed over a pass's 34
+    calls."""
+    rows = []
+    for b in (1, 2):
+        for sq, sk, h, d, per_pass in FLASH_SHAPES:
+            q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen) for s in (sq, sk, sk))
+            rows.append(fp32_row(q, k, v, per_pass, "tma_tf32x3", timed=b == 1))
+            if b == 1 and d == 512:
+                check_short_workspace(q, k, v)
+    simt = []
+    for b, sq, sk, h, d, fault, timed in FP32_SIMT_CASES:
+        q, k, v = (torch.randn(b * s * h * d + 1, device="cuda", generator=gen)[1:].view(b, s, h, d)
+                   if i == 0 and "misaligned" in fault else torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   for i, s in enumerate((sq, sk, sk)))
+        simt.append(dict(fp32_row(q, k, v, 0, "simt", timed), fault=fault))
+    b1 = [r for r in rows if r["shape"][0] == 1]
+    total = {key: sum(r[key] * r["per_pass"] for r in b1)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_fp32_ms")}
     log(f"K1 fp32 body over one B=1 512x512 extractor pass at steps (0,) (34 calls): "
         + ", ".join(f"{k} {v:.4f}" for k, v in total.items()))
-    return rows, total
+    return rows, simt, total
 
 
-def measure_ldm(name, fn, expected, card, check=None):
+def measure_ldm(name, fn, expected, card, check=None, body="tma_wgmma"):
     """One warm-up, one counted run of ``fn`` (its K1 launches must equal
-    ``expected``; ``check`` holds its output), then 3 timed runs: ms and
-    peak memory."""
+    ``expected``, every one of them on K1's ``body``; ``check`` holds its
+    output), then 3 timed runs: ms and peak memory."""
     with torch.no_grad():
         fn()
         torch.cuda.synchronize()
         reset_counts()
+        before = body_counts()
         out = fn()
         torch.cuda.synchronize()
         counts = launch_counts()
+        bodies = bodies_since(before)
         outs = out if isinstance(out, list) else [out]
         finite = all(torch.isfinite(o).all().item() for o in outs)
         if check is not None:
@@ -2722,10 +2864,10 @@ def measure_ldm(name, fn, expected, card, check=None):
         ms = cuda_ms(fn, reps=3, warmup=0)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"phase 15 full width {name}: {ms:.2f} ms, peak memory {peak:.2f} GiB, launches {counts} "
-        f"(expected {expected}), finite {finite} [{card}]")
-    if counts != expected or not finite:
-        raise AssertionError(f"phase 15 {name}: launches {counts}, finite {finite}")
-    return dict(ms=ms, peak_gib=peak, launches=counts)
+        f"(expected {expected}), K1 bodies {bodies}, finite {finite} [{card}]")
+    if counts != expected or bodies != {body: expected["K1"]} or not finite:
+        raise AssertionError(f"phase 15 {name}: launches {counts}, K1 bodies {bodies}, finite {finite}")
+    return dict(ms=ms, peak_gib=peak, launches=counts, bodies=bodies)
 
 
 def feature_shapes(ex, b):
@@ -2774,13 +2916,14 @@ def run_ldm_full(card):
     rows = {}
     bf16 = LdmExtractor(device="cuda", compute_dtype=torch.bfloat16, **LDM_TAPS)
     bf16.load_state_dict(model.state_dict())
+    bodies = {"fp32": "tma_tf32x3", "bf16": "tma_wgmma"}  # K1's body for every call of the pass
     for dtype, ex in (("fp32", model), ("bf16", bf16)):
         for b, x in images.items():
             rows[dtype, b] = measure_ldm(f"LdmExtractor {dtype} B={b} steps (0,)", lambda: ex(x),
-                                         ldm_launches(ex.steps), card, feature_shapes(ex, b))
+                                         ldm_launches(ex.steps), card, feature_shapes(ex, b), bodies[dtype])
         ex.steps = (0, 100)
         rows[dtype, "steps"] = measure_ldm(f"LdmExtractor {dtype} B=1 steps (0, 100)", lambda: ex(images[1]),
-                                           ldm_launches(ex.steps), card, feature_shapes(ex, 1))
+                                           ldm_launches(ex.steps), card, feature_shapes(ex, 1), bodies[dtype])
         ex.steps = (0,)
     del model
     gc.collect()
@@ -2965,8 +3108,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_ldm_toy()
     phase_done("15 (a) (the LDM path's toy extractor, captioner and DDIM, CUDA against CPU)")
-    flash32_rows, flash32 = check_flash_fp32(gen)
-    run_ldm_full(card)
+    flash32_rows, flash32_simt, flash32 = check_flash_fp32(gen)
+    ldm_rows = run_ldm_full(card)
     phase_done("15 (b) (K1's fp32 body, the CompVis file, the LDM passes at full width)")
     check_native(card, cli)
     phase_done("15 (c) (the native decoder)")
@@ -2992,8 +3135,14 @@ def main() -> int:
          "ms": per_pass("ms"), "plain_ms": per_pass("plain_ms"), "bound_ms": per_pass("bound_ms"),
          "bound_by": bound_ms(k1_b, k1_f)[1], "library_ms": per_pass("library_ms"),
          "per": "one 512x512 pass at B=1 (sum over its 34 calls)", "shapes": flash_rows,
-         "fp32_body": dict(flash32, per="one B=1 512x512 LdmExtractor pass at steps (0,) in fp32 "
-                                        "(its 34 calls)", shapes=flash32_rows)},
+         "fp32_body": dict(flash32, body="tma_tf32x3: 3xTF32 wgmma on TMA, madm_torch/csrc/flash_fwd_tf32.cuh",
+                           launches=ldm_rows["fp32", 1]["launches"]["K1"],
+                           max_abs_err=max(r["max_abs_err"] for r in flash32_rows),
+                           bound_by=flash32_rows[0]["bound_by"],
+                           library="scaled_dot_product_attention, fp32, TF32 off",
+                           per="one B=1 512x512 LdmExtractor pass at steps (0,) in fp32 (its 34 calls)",
+                           d512=[r for r in flash32_rows if r["shape"][0] == 1 and r["shape"][4] == 512],
+                           shapes=flash32_rows, simt=flash32_simt)},
         {"name": "aspp_fused", "route": "cuda", "source": "madm_torch/csrc/aspp_fused.cu",
          "replaces": "madm_tpu/ops/aspp.py:208", "launches": eval_counts["aspp"]["K2"],
          "max_abs_err": max(r["max_abs_err"] for r in aspp_rows),

@@ -16,7 +16,7 @@
 // the TPU kernel did), divided by the sum once, after the last PV product.
 // The S x S scores never reach device memory.
 //
-// Two bodies, chosen from the dtype:
+// Three bodies, chosen from the dtype and, in fp32, what TMA can address:
 // - bf16 (every attention of the model): warp-specialised TMA + wgmma, the
 //   body in flash_fwd_tma.cuh (its layouts are described there) in its
 //   one-pass mode: online softmax in the accumulator registers, P as the
@@ -25,11 +25,28 @@
 //   goes to lse [B, H, Sq] when asked: K3 (flash_attention_bwd.cu)
 //   recomputes P = exp(s - lse) from it.  K4 (flash_attention_packed.cu)
 //   runs the same body in its two-pass mode.
-// - float32 (the parity path): SIMT fp32 FMA on a 16x16 thread grid,
-//   register tiles of RI query rows x CJ keys and RI rows x DJ head columns;
-//   D=512 uses 32-row query tiles so its fp32 output accumulator stays in
-//   registers (32 x 512 over 256 threads).  This body does not use the
-//   tensor cores.  It writes lse as the bf16 body does.
+// - float32 (the LDM extractor's default, fp32 eval, the toy parity
+//   checks): the tensor cores in "3xTF32", the body in flash_fwd_tf32.cuh
+//   (its bound, error argument, layouts and key split are described there),
+//   for every call TMA can address: D % 4 == 0, 16-byte aligned bases and
+//   stepped strides of a multiple of 4 elements.  It is bound by operations
+//   (12 H Sq Sk D at 495 TFLOP/s): every fp32 product is at least three
+//   tf32 products of hi and lo pieces (rounded to tf32; a third piece of q,
+//   k and P where memory allows), each error below 2^-22 of the product,
+//   and the tensor cores' sums are kept to one k-step before fp32 adds
+//   them.  q * scale * log2(e) stays fp32; P is split in registers
+//   and is PV's A operand; V is written transposed into Vt hi and lo tiles
+//   (tf32 wgmma reads shared operands K-major only), K into hi and lo
+//   copies of TMA's layout.  Where
+//   the query tiles leave SMs idle (the VAE's single head of D=512 at B=1:
+//   64 tiles), the keys are split over blocks into fp32 partials that a
+//   combine kernel merges in split order; lse is written as the bf16 body
+//   writes it.  The wrapper hands the partials' workspace in (`work`).
+//   What TMA cannot address (D % 4 != 0, a misaligned base or stride) runs
+//   the SIMT body below: fp32 FMA on a 16x16 thread grid, register tiles of
+//   RI query rows x CJ keys and RI rows x DJ head columns (D=512 in 32-row
+//   tiles); madm_flash_attention_fwd_f32_plan says which.  A launch either
+//   body refuses returns its error: nothing falls back.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,6 +55,7 @@
 
 #include <chrono>
 
+#include "flash_fwd_tf32.cuh"
 #include "flash_fwd_tma.cuh"
 
 namespace {
@@ -239,6 +257,18 @@ cudaError_t dispatch_simt(const void* q, const void* k, const void* v, void* o, 
   return cudaErrorInvalidValue;
 }
 
+// launches of each body since the library was loaded (0: fp32 SIMT, 1: fp32
+// 3xTF32, 2: bf16), so that a check can tell which body a call took
+long long body_launches[3] = {0, 0, 0};
+
+// the fp32 body's plan: the TMA body where TMA can address q, k and v
+fwd_tf32::F32Plan f32_plan_of(int b, int sq, int sk, int h, int d, const void* q, const void* k, const void* v,
+                              const Strides& qs, const Strides& ks, const Strides& vs) {
+  const bool tma = fwd_tf32::f32_addressable(b, h, d, q, qs) && fwd_tf32::f32_addressable(b, h, d, k, ks) &&
+                   fwd_tf32::f32_addressable(b, h, d, v, vs);
+  return fwd_tf32::f32_plan(b, sq, sk, h, d, tma);
+}
+
 }  // namespace
 
 extern "C" {
@@ -246,13 +276,17 @@ extern "C" {
 const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  lse is null
-// or a contiguous fp32 [B, H, Sq].  bf16 needs what TMA needs: D % 8 == 0,
-// 16-byte aligned bases, S and B strides of a multiple of 8 elements, and
-// heads side by side (head stride D) or a head stride of a multiple of 8.
+// or a contiguous fp32 [B, H, Sq]; o is contiguous.  work is the fp32
+// body's workspace, work_bytes long: at least the bytes
+// madm_flash_attention_fwd_f32_plan returns (null and 0 where that is 0;
+// a shorter one is refused).  bf16 needs what TMA needs: D % 8 == 0, 16-byte
+// aligned bases, S and B strides of a multiple of 8 elements, and heads
+// side by side (head stride D) or a head stride of a multiple of 8.
 // Returns the cudaError_t of the launch (0 = success, cudaErrorInvalidValue
-// for input outside these bounds); the kernel runs on `stream`.
+// for input outside these bounds); the kernels run on `stream`.
 int madm_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                             void* lse, int b, int sq, int sk, int h, int d,
+                             void* lse, void* work, long long work_bytes, int b, int sq, int sk, int h,
+                             int d,
                              long long q_sb, long long q_ss, long long q_sh,
                              long long k_sb, long long k_ss, long long k_sh,
                              long long v_sb, long long v_ss, long long v_sh,
@@ -263,15 +297,42 @@ int madm_flash_attention_fwd(int dtype, const void* q, const void* k, const void
   const float qscale = scale * 1.4426950408889634f;  // fold log2(e): softmax in base 2
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (d < 1 || d > 512)
+  if (d < 1 || d > 512) {
     err = cudaErrorInvalidValue;
-  else if (dtype == 0)
-    err = dispatch_simt(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
-  else if (dtype == 1 && d % 8 == 0)
+  } else if (dtype == 0) {
+    const fwd_tf32::F32Plan p = f32_plan_of(b, sq, sk, h, d, q, k, v, qs, ks, vs);
+    err = p.tma ? fwd_tf32::dispatch_tf32(p, q, k, v, o, static_cast<float*>(lse), work, work_bytes, b, sq, sk, h,
+                                          d, qs, ks, vs, os, qscale, st)
+                : dispatch_simt(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
+    if (err == cudaSuccess) ++body_launches[p.tma];
+  } else if (dtype == 1 && d % 8 == 0) {
     err = dispatch_tma(q, k, v, o, static_cast<float*>(lse), b, sq, sk, h, d, qs, ks, vs, os, qscale, st);
-  else
+    if (err == cudaSuccess) ++body_launches[2];
+  } else {
     err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
+}
+
+// The fp32 plan for tensors at q, k, v with these strides, for holding
+// forward_plan() to it: out = {TMA body (1) or SIMT (0), padded D, q rows a
+// block, keys a tile, consumer warpgroups, D split over them, ring stages,
+// key splits, dynamic shared memory bytes}; returns the workspace bytes.
+long long madm_flash_attention_fwd_f32_plan(int b, int sq, int sk, int h, int d, const void* q, const void* k,
+                                            const void* v, long long q_sb, long long q_ss, long long q_sh,
+                                            long long k_sb, long long k_ss, long long k_sh,
+                                            long long v_sb, long long v_ss, long long v_sh, int* out) {
+  const fwd_tf32::F32Plan p = f32_plan_of(b, sq, sk, h, d, q, k, v, Strides{q_sb, q_ss, q_sh},
+                                          Strides{k_sb, k_ss, k_sh}, Strides{v_sb, v_ss, v_sh});
+  const int x[9] = {p.tma, p.dn, p.bq, p.bk, p.nwg, p.splitd, p.stages, p.nsplit, p.smem};
+  for (int i = 0; i < 9; ++i) out[i] = x[i];
+  return p.ws;
+}
+
+// out = launches of each body since the library was loaded: {fp32 SIMT,
+// fp32 3xTF32, bf16}
+void madm_flash_attention_body_counts(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = body_launches[i];
 }
 
 // The bf16 body's launch plan for a shape, for holding attention_plan() to

@@ -9,6 +9,11 @@ the hand-written kernels ``csrc/flash_attention.cu`` (which replaces
 ``csrc/flash_attention_bwd.cu`` (which replaces ``_attn_bwd_kernel``), or
 raises.  When a gradient is needed, K1 also writes the fp32 row
 log-sum-exp that K3 recomputes the probabilities from; eval passes skip it.
+K1's fp32 body runs on the tensor cores from tf32 pieces ("3xTF32",
+``csrc/flash_fwd_tf32.cuh``) wherever TMA can address the tensors;
+``attention_tf32x3_reference`` states its arithmetic (the rounded tf32
+split of ``tf32_split``, the products of the pieces, the key tiles' online
+softmax and the key-split partials merged in split order).
 ``flash_attention.launches`` and ``flash_attention_backward.launches`` count
 kernel launches.  ``forward_plan`` and ``backward_plan`` state, as pure
 functions of shape, strides and dtype, how the two kernels launch (body,
@@ -82,6 +87,92 @@ def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_LOG2E = 1.4426950408889634
+_TF32_MASK = -8192  # 0xFFFFE000 as an int32: the low 13 mantissa bits cleared
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """The fp32 tensor ``x`` rounded to the nearest tf32 (10 explicit
+    mantissa bits, ties away from zero), as K1's fp32 body rounds what it
+    hands a tf32 wgmma: half of the dropped 13 bits added to the magnitude,
+    then the 13 bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & _TF32_MASK).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of an fp32 tensor as K1's fp32 body splits it: hi = ``tf32(x)``,
+    lo = x - hi (exact in fp32, so hi + lo == x); the body stores lo as
+    ``tf32(lo)``, which is what a tf32 wgmma reads of it."""
+    hi = tf32(x.float())
+    return hi, x.float() - hi
+
+
+def _tf32_product(eq: str, x: torch.Tensor, y: torch.Tensor, x3: bool = False, y3: bool = False) -> torch.Tensor:
+    """einsum(eq, x, y) as K1's fp32 body forms it from tf32 pieces, the
+    small products first: xl yh + xh yl + xh yh (x = xh + xl, xl read as
+    tf32); with ``x3`` (``y3``) x's (y's) third piece xl2 = tf32(xl -
+    tf32(xl)) too, so that x = xh + tf32(xl) + xl2, and the products xl2
+    yh (xh yl2) and xl yl before them."""
+    (xh, xl), (yh, yl) = tf32_split(x), tf32_split(y)
+    xl, yl = tf32(xl), tf32(yl)
+    out = torch.zeros(())
+    if x3:
+        out = out + torch.einsum(eq, tf32(x.float() - xh - xl), yh)
+    if y3:
+        out = out + torch.einsum(eq, xh, tf32(y.float() - yh - yl))
+    if x3 or y3:
+        out = out + torch.einsum(eq, xl, yl)
+    return ((out + torch.einsum(eq, xl, yh)) + torch.einsum(eq, xh, yl)) + torch.einsum(eq, xh, yh)
+
+
+def attention_tf32x3_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: Optional[float] = None, bk: int = 64, nsplit: int = 1,
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's fp32 body in plain torch: (o, lse) in fp32, o [B, Sq, H, D] and
+    lse [B, H, Sq] (natural log of the scaled scores).  q * (scale *
+    log2(e)) is formed in fp32; every product (the scores, P V) is formed
+    from tf32 pieces as the kernel forms it (``_tf32_product``: hi and lo,
+    and a third piece of q and k at D <= 80 and of P at D <= 160); the keys are walked
+    in tiles of ``bk`` with the online base-2 softmax (running max m and sum
+    l in fp32, o rescaled as m moves); the tiles are cut into ``nsplit``
+    contiguous runs as the kernel's grid cuts them (run s takes tiles [s nkt
+    // nsplit, (s + 1) nkt // nsplit)), and the runs' partials are merged in
+    split order as the combine kernel merges them: M = max m_s, L = sum l_s
+    2^(m_s - M), o = (sum o_s 2^(m_s - M)) / L."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qscale = float(torch.tensor(scale, dtype=torch.float32) * torch.tensor(_LOG2E, dtype=torch.float32))
+    qs = q.float() * qscale
+    kf, vf = k.float(), v.float()
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    nkt = -(-sk // bk)
+    parts = []
+    for sp in range(nsplit):
+        m = torch.full((b, h, sq, 1), -math.inf, device=q.device)
+        l = torch.zeros((b, h, sq, 1), device=q.device)
+        o = torch.zeros((b, h, sq, d), device=q.device)
+        for t in range(sp * nkt // nsplit, (sp + 1) * nkt // nsplit):
+            k0, k1 = t * bk, min((t + 1) * bk, sk)
+            st = _tf32_product("bqhd,bkhd->bhqk", qs, kf[:, k0:k1], d <= 80, d <= 80)
+            n = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+            alpha = torch.exp2(m - n)
+            p = torch.exp2(st - n)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            o = o * alpha + _tf32_product("bhqk,bkhd->bhqd", p, vf[:, k0:k1], x3=d <= 160)
+            m = n
+        parts.append((m, l, o))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    total, acc = torch.zeros_like(mx), torch.zeros((b, h, sq, d), device=q.device)
+    for m, l, o in parts:
+        w = torch.exp2(m - mx)
+        total = total + l * w
+        acc = acc + o * w
+    out = acc * (1.0 / total)
+    lse = ((mx + torch.log2(total)) * math.log(2.0))[..., 0]
+    return out.permute(0, 2, 1, 3).contiguous(), lse.contiguous()
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B,Sq,H,D], k/v [B,Sk,H,D]; got {q.shape}, {k.shape}, {v.shape}")
@@ -119,14 +210,17 @@ class Launch:
 @dataclass(frozen=True)
 class AttentionPlan:
     """How K1, K3, K4 or K5 runs a call: ``body`` "tma_wgmma" (bf16; K4's
-    "tma_wgmma_two_pass") or "simt" (float32); ``dn`` the head dim padded for
-    the tensor cores (the fp32 bodies' padded head dim); ``bq`` and
-    ``bk`` the query rows and keys of a block's tiles (for K3, those of the
-    dK/dV kernel; ``bk_dq``/``bq_dq`` those of the dQ kernel); ``warpgroups``
-    the consumer warpgroups of the main kernel and ``split_d`` whether they
-    share rows and split D (the D=512 VAE attention); ``nsplit`` the splits
-    of K3's query loop; ``launches`` every kernel launched, in order;
-    ``workspace_bytes`` K3's scratch (its ``delta`` argument)."""
+    "tma_wgmma_two_pass"), "tma_tf32x3" (K1's fp32 body on the tensor cores)
+    or "simt" (the other fp32 bodies, and K1's where TMA cannot address the
+    tensors); ``dn`` the head dim padded for the tensor cores (the SIMT
+    bodies' padded head dim); ``bq`` and ``bk`` the query rows and keys of a
+    block's tiles (for K3, those of the dK/dV kernel; ``bk_dq``/``bq_dq``
+    those of the dQ kernel); ``warpgroups`` the consumer warpgroups of the
+    main kernel and ``split_d`` whether they share rows and split D (the
+    D=512 VAE attention); ``stages`` the ring's raw tiles; ``nsplit`` the
+    splits of K3's query loop or of K1's fp32 key loop; ``launches`` every
+    kernel launched, in order; ``workspace_bytes`` K3's scratch (its
+    ``delta`` argument) or the fp32 K1's key-split partials."""
     kernel: str
     body: str
     heads: int
@@ -146,7 +240,8 @@ class AttentionPlan:
     @property
     def fills_card(self) -> bool:
         """Every launch but the small prep and reduction runs >= SM_COUNT blocks."""
-        return all(l.blocks >= SM_COUNT for l in self.launches if l.kernel not in ("bwd_prep", "dkdv_reduce"))
+        return all(l.blocks >= SM_COUNT for l in self.launches
+                   if l.kernel not in ("bwd_prep", "dkdv_reduce", "flash_fwd_combine"))
 
     @property
     def score_copies(self) -> int:
@@ -188,13 +283,92 @@ def _chunks(dn: int) -> int:
     return -(-dn // 64)
 
 
+def _f32_addressable(d: int, h: int, b: int, tensors: Sequence[Tuple[int, Tuple[int, int, int]]]) -> bool:
+    """Whether TMA can address every fp32 tensor of ``tensors`` ((base
+    address, (batch, seq, head) element strides) of each): D % 4 == 0, a
+    16-byte aligned base, and every stepped stride a positive multiple of 4
+    elements (16 bytes)."""
+    if d % 4:
+        return False
+    for ptr, (sb, ss, sh) in tensors:
+        if ptr % 16 or ss <= 0 or ss % 4:
+            return False
+        if (b > 1 and (sb <= 0 or sb % 4)) or (h > 1 and (sh <= 0 or sh % 4)):
+            return False
+    return True
+
+
+def _tf32_dn(d: int) -> int:
+    return next(x for x in (40, 80, 160, 512) if d <= x)
+
+
+def _tf32_tile(dn: int, bk: int, nwg: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory bytes) of the fp32 body's tiles,
+    as ``TfTile`` in csrc/flash_fwd_tf32.cuh computes them: Q hi and lo
+    (D <= 160), two split regions (K hi and lo, or Vt hi and lo), the
+    partial scores (D = 512), as many raw ring slots as fit (up to 3), the
+    barriers and 1024 bytes of alignment."""
+    split_d = dn == 512
+    bq = 64 if split_d else 64 * nwg
+    nchs = 2 if split_d else -(-dn // 32)
+    cg, dvw = (nwg, 64) if split_d else (1, dn)
+    qk_pieces = 3 if not split_d and dn <= 80 else 2  # q and k in three tf32 pieces where memory allows
+    qbox, kbox = bq * 128, bk * 128
+    s_raw = (nchs * qbox if split_d else 0) + nchs * kbox
+    raw = max(s_raw, cg * -(-dvw // 32) * kbox)
+    region = max(qk_pieces * s_raw, 2 * cg * -(-bk // 32) * dvw * 128)
+    fixed = 1024 + (0 if split_d else qk_pieces * nchs * qbox) + 2 * region + (nwg * 64 * bk * 4 if split_d else 0)
+    stages = min(3, (SMEM_LIMIT - fixed - 32) // raw)
+    return stages, fixed + stages * raw + 8 * (1 + stages)
+
+
+def _tf32_nsplit(blocks: int, nkt: int) -> int:
+    """Key splits of the fp32 body: 1 where the query blocks fill the card;
+    else from ceil(SM_COUNT / blocks) to twice that (at most the key tiles),
+    the count whose last wave is fullest, the smallest of equals."""
+    if blocks >= SM_COUNT:
+        return 1
+    lo = -(-SM_COUNT // blocks)
+    if lo >= nkt:
+        return nkt
+    best, best_used, best_slots = lo, blocks * lo, -(-blocks * lo // SM_COUNT) * SM_COUNT
+    for n in range(lo + 1, min(2 * lo, nkt) + 1):
+        used = blocks * n
+        slots = -(-used // SM_COUNT) * SM_COUNT
+        if used * best_slots > best_used * slots:
+            best, best_used, best_slots = n, used, slots
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def _tf32_plan(b: int, sq: int, sk: int, h: int, d: int) -> AttentionPlan:
+    """The fp32 TMA body's plan (``f32_plan`` in csrc/flash_fwd_tf32.cuh)."""
+    dn = _tf32_dn(d)
+    split_d = dn == 512
+    nwg = 2 if split_d or (dn == 40 and _fills(sq, h, b)) else 1
+    bq = 64 if split_d else 64 * nwg
+    bk = 64 if split_d or dn == 40 else 32
+    stages, smem = _tf32_tile(dn, bk, nwg)
+    nsplit = _tf32_nsplit(-(-sq // bq) * h * b, -(-sk // bk))
+    launches = [Launch("flash_fwd_tf32", (-(-sq // bq), h, b * nsplit), 128 * nwg, smem)]
+    if nsplit > 1:
+        launches.append(Launch("flash_fwd_combine", (-(-b * h * sq * (d // 4) // 256), 1, 1), 256, 0))
+    return AttentionPlan("K1", "tma_tf32x3", h, dn, bq, bk, nwg, split_d, stages, nsplit, launches=tuple(launches),
+                         workspace_bytes=4 * nsplit * b * h * sq * (d + 2) if nsplit > 1 else 0)
+
+
 def forward_plan(b: int, sq: int, sk: int, h: int, d: int, dtype: torch.dtype,
                  tensors: Sequence[Tuple[int, Tuple[int, int, int]]] = ()) -> AttentionPlan:
-    """K1's plan (``madm_flash_attention_fwd_plan`` in csrc/flash_attention.cu
-    makes the same choice): bf16 runs the TMA body, raising for tensors TMA
-    cannot address (``tensors``: (base address, (batch, seq, head) strides)
-    of q, k, v); float32 runs the SIMT body."""
+    """K1's plan (``madm_flash_attention_fwd_plan`` and, for float32,
+    ``madm_flash_attention_fwd_f32_plan`` in csrc/flash_attention.cu make
+    the same choice); ``tensors``: (base address, (batch, seq, head)
+    strides) of q, k, v, contiguous at aligned addresses if left out.
+    bf16 runs the TMA body, raising for tensors TMA cannot address; float32
+    runs the 3xTF32 TMA body where TMA can address the tensors, the SIMT
+    body where it cannot (D % 4 != 0, a misaligned base or stride)."""
     if dtype == torch.float32:
+        if _f32_addressable(d, h, b, tensors):
+            return _tf32_plan(b, sq, sk, h, d)
         dpad = next(x for x in (48, 64, 80, 128, 160, 512) if d <= x)
         bq, bk = (32, 32) if dpad == 512 else (64, 64 if dpad <= 80 else 32)
         smem = 4 * (bq * (dpad + 1) + bk * (dpad + 1) + bk * dpad + bq * (bk + 1))
@@ -300,7 +474,7 @@ def _on_device(device: torch.device):
     return torch.cuda.device(device)
 
 
-_FWD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_FWD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5
              + [ctypes.c_longlong] * 12 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -309,12 +483,19 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Kernel K1 on CUDA tensors (raises for any other): (o, lse), lse the
     fp32 row log-sum-exp [B, H, Sq] of the scaled scores, or None unless
-    ``with_lse``.  bf16 tensors must be what ``forward_plan`` takes."""
+    ``with_lse``.  bf16 tensors must be what ``forward_plan`` takes; fp32
+    tensors take the body ``forward_plan`` names, with the workspace of its
+    key split."""
     _check(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    tensors = [(t.data_ptr(), t.stride()[:3]) for t in (q, k, v)]
+    work, nbytes = None, 0
     if q.dtype == torch.bfloat16:
-        _tma_checks("flash_attention", d, h, [(t.data_ptr(), t.stride()[:3]) for t in (q, k, v)], b)
+        _tma_checks("flash_attention", d, h, tensors, b)
+    elif _f32_addressable(d, h, b, tensors) and q.numel() and k.numel():
+        nbytes = _tf32_plan(b, sq, sk, h, d).workspace_bytes
+        work = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if o.numel() == 0:
@@ -322,8 +503,8 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib, fn = _bind("flash_attention", "madm_flash_attention_fwd", _FWD_ARGS)
     with _on_device(q.device):
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(), b, sq, sk, h, d,
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                 None if lse is None else lse.data_ptr(), None if work is None else work.data_ptr(), nbytes,
+                 b, sq, sk, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
                  float(scale), torch.cuda.current_stream().cuda_stream)
     kernels.check(lib, err, "flash_attention launch")
     flash_attention.launches += 1
@@ -413,7 +594,6 @@ flash_attention.launches = 0
 
 
 # ------------------------------------------------------- packed-head path
-_LOG2E = 1.4426950408889634
 MAX_PACKED_HEAD_DIM = 64  # 128 // D >= 2: wider heads never pack
 PACKED_KEY_TILE = 64  # K4's bf16 keys a tile
 

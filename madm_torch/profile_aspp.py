@@ -49,6 +49,7 @@ import torch
 from . import kernels
 from .device import card_line
 from .ops import aspp
+from .profile_packed import turn_ms
 
 SHAPES = ((1, 512, 512), (2, 512, 512), (1, 512, 1024))
 REPS = 20
@@ -171,7 +172,7 @@ def ablate(gen: torch.Generator, kernel: str = "aspp") -> list:
                 times = {"whole": [], "ablated": []}
                 for turn in ("whole", "ablated", "ablated", "whole"):
                     kernels._loaded[name] = whole if turn == "whole" else lib
-                    times[turn].append(turn_ms(fn))
+                    times[turn].append(turn_ms(fn, REPS)[0])
                 row = {"ablation": run, "case": case, "ms": times,
                        "median_ms": {k: statistics.median(v) for k, v in times.items()}}
                 rows.append(row)
@@ -243,19 +244,6 @@ def cases(kernel: str, gen: torch.Generator, mods: dict):
                    compare)
 
 
-def turn_ms(fn) -> float:
-    """Mean device ms of one call over REPS back-to-back calls."""
-    for _ in range(2):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", default="aspp", choices=("aspp", "dw", "argmax"),
@@ -282,7 +270,7 @@ def main() -> None:
         torch.cuda.synchronize()
         times = {name: [] for name in fns}
         for name in order:
-            times[name].append(turn_ms(fns[name]))
+            times[name].append(turn_ms(fns[name], REPS)[0])
         row = {"shape": shape, "ms": times, "median_ms": {k: statistics.median(v) for k, v in times.items()}}
         if "parent" in outs:
             row.update(compare(outs["this"], outs["parent"]))

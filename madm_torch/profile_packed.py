@@ -70,21 +70,21 @@ def calls(mod, q, k, v, do, scale, g):
             "K4+K5": lambda: (forward(q, k, v, scale, g), mod.packed_attention_backward(q, k, v, do, scale, g))}
 
 
-def turn_ms(fn):
-    """(mean device ms, mean host us to enqueue) of one call over REPS
-    back-to-back calls."""
-    for _ in range(2):
+def turn_ms(fn, reps: int = REPS, warmup: int = 2):
+    """(mean device ms, mean host us to enqueue) of one call over ``reps``
+    back-to-back calls, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     end.record()
-    host = (time.perf_counter() - t0) / REPS * 1e6
+    host = (time.perf_counter() - t0) / reps * 1e6
     end.synchronize()
-    return start.elapsed_time(end) / REPS, host
+    return start.elapsed_time(end) / reps, host
 
 
 def main() -> None:
