@@ -52,9 +52,10 @@
 //   over D has its columns past D zeroed in shared memory.  It needs
 //   D % 8 == 0 and 16-byte aligned tensors, as every UNet attention has;
 //   other bf16 input is refused, not sent to a slower body.
-// - float32 (the parity path): SIMT fp32 FMA with the tiles in shared
+// - float32: 3xTF32 wgmma on TMA (flash_bwd_tf32.cuh, which describes it)
+//   for every call whose tensors it can address (D % 4 == 0, 16-byte aligned
+//   bases); the rest take the SIMT body: fp32 FMA with the tiles in shared
 //   memory, one instantiation padded to D=160, delta from delta_kernel.
-//   This body does not use the tensor cores.
 //
 // The same bf16 kernels are K5's body (madm_packed_attention_bwd_tma below):
 // the backward of K4 (flash_attention_packed.cu) on the packed self-attention
@@ -75,6 +76,7 @@
 
 #include <algorithm>
 
+#include "flash_bwd_tf32.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -838,33 +840,95 @@ cudaError_t launch_simt(const Args& a) {  // the fp32 parity path
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// launches of each body since the library was loaded (0: fp32 SIMT, 1: fp32
+// 3xTF32, 2: bf16), so that a check can tell which body a call took
+long long body_launches[3] = {0, 0, 0};
+
+// the fp32 plan: the 3xTF32 body where its TMA maps and vector stores can
+// address the tensors (D % 4 == 0, each of q, k, v, o, dout, dq, dk, dv
+// 16-byte aligned), SIMT elsewhere
+bwd_tf32::F32BwdPlan f32_bwd_plan_of(int b, int sq, int sk, int h, int d, const void* const (&t)[8]) {
+  bool ok = true;
+  for (const void* p : t) ok = ok && aligned16(p);
+  return bwd_tf32::f32_bwd_plan(b, sq, sk, h, d, ok);
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* madm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o, dout, dq: contiguous [B, Sq, H, D];
-// k, v, dk, dv: contiguous [B, Sk, H, D]; lse (from the forward): contiguous
-// fp32 [B, H, Sq].  `delta` is the workspace: fp32 [B, H, Sq] for float32,
-// madm_flash_attention_bwd_plan's bytes (16-byte aligned) for bf16.  D <=
-// 160; bf16 also needs D % 8 == 0 and 16-byte aligned q, k, v, dout, dq, dk,
+// bf16.  q, o, dout, dq: contiguous [B, Sq, H, D]; k, v, dk, dv: contiguous
+// [B, Sk, H, D]; lse (from the forward): contiguous fp32 [B, H, Sq].
+// `delta` is the workspace: madm_flash_attention_bwd_plan's bytes (16-byte
+// aligned).  D <= 160, D % 8 == 0, 16-byte aligned q, k, v, dout, dq, dk,
 // dv.  Returns the cudaError_t of the launches (0 = success,
 // cudaErrorInvalidValue for input outside these bounds); the kernels run on
 // `stream`.
-int madm_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
-                             const void* o, const void* dout, const void* lse, void* delta,
-                             void* dq, void* dk, void* dv, int b, int sq, int sk, int h, int d,
-                             float scale, void* stream) {
+int madm_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                             const void* lse, void* delta, void* dq, void* dk, void* dv, int b, int sq, int sk,
+                             int h, int d, float scale, void* stream) {
   const Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(delta),
                dq, dk, dv, Shape{b, sq, sk, h, d}, scale * kLog2e, scale,
                static_cast<cudaStream_t>(stream)};
-  if (d < 1 || d > 160) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return static_cast<int>(launch_simt<160>(a));
-  const bool ok = dtype == 1 && d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+  const bool ok = d >= 1 && d <= 160 && d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
                   aligned16(dout) && aligned16(dq) && aligned16(dk) && aligned16(dv) && aligned16(delta);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_tma(a));
+  const cudaError_t err = launch_tma(a);
+  if (err == cudaSuccess) ++body_launches[2];
+  return static_cast<int>(err);
+}
+
+// float32, the tensors as madm_flash_attention_bwd's; `ws` is the
+// workspace, ws_bytes long: at least the bytes madm_flash_attention_bwd_f32_plan
+// returns (a shorter one is refused).  D <= 160.  The 3xTF32 body where
+// the plan names it, else SIMT.  Returns the cudaError_t of the launches;
+// the kernels run on `stream`.
+int madm_flash_attention_bwd_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                 const void* lse, void* ws, long long ws_bytes, void* dq, void* dk, void* dv,
+                                 int b, int sq, int sk, int h, int d, float scale, void* stream) {
+  if (d < 1 || d > 160) return static_cast<int>(cudaErrorInvalidValue);
+  const bwd_tf32::F32BwdPlan p = f32_bwd_plan_of(b, sq, sk, h, d, {q, k, v, o, dout, dq, dk, dv});
+  cudaError_t err;
+  if (p.tma) {
+    const bwd_tf32::BwdIn in{static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), static_cast<const float*>(o),
+                             static_cast<const float*>(dout), static_cast<const float*>(lse),
+                             static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                             b, sq, sk, h, d, scale * kLog2e, scale, static_cast<cudaStream_t>(stream)};
+    err = bwd_tf32::dispatch_tf32(p, in, ws, ws_bytes);
+  } else if (ws == nullptr || ws_bytes < p.bytes) {
+    err = cudaErrorInvalidValue;
+  } else {
+    const Args a{q, k, v, o, dout, static_cast<const float*>(lse), static_cast<float*>(ws),
+                 dq, dk, dv, Shape{b, sq, sk, h, d}, scale * kLog2e, scale,
+                 static_cast<cudaStream_t>(stream)};
+    err = launch_simt<160>(a);
+  }
+  if (err == cudaSuccess) ++body_launches[p.tma];
+  return static_cast<int>(err);
+}
+
+// The fp32 plan for tensors at these addresses, for holding backward_plan()
+// to it: out = {3xTF32 body (1) or SIMT (0), padded D, queries a dK/dV
+// tile, keys a dQ tile, A side resident, dK/dV splits, dK/dV ring stages,
+// dQ ring stages, dK/dV shared memory, dQ shared memory, the stats' padded
+// rows}; returns the workspace bytes.
+long long madm_flash_attention_bwd_f32_plan(int b, int sq, int sk, int h, int d, const void* q, const void* k,
+                                            const void* v, const void* o, const void* dout, const void* dq,
+                                            const void* dk, const void* dv, int* out) {
+  const bwd_tf32::F32BwdPlan p = f32_bwd_plan_of(b, sq, sk, h, d, {q, k, v, o, dout, dq, dk, dv});
+  const int x[11] = {p.tma, p.dn, p.bt_kv, p.bt_q, p.res, p.nsplit, p.stages_kv, p.stages_q, p.smem_kv,
+                     p.smem_q, p.sqs};
+  for (int i = 0; i < 11; ++i) out[i] = x[i];
+  return p.bytes;
+}
+
+// out = launches of each body through the two entries above since the
+// library was loaded: {fp32 SIMT, fp32 3xTF32, bf16}
+void madm_flash_attention_bwd_body_counts(long long* out) {
+  for (int i = 0; i < 3; ++i) out[i] = body_launches[i];
 }
 
 // K5's bf16 body: K3's kernels for the backward of K4 on a packed

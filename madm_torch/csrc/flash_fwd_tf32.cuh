@@ -159,13 +159,6 @@ struct TfTile {
   static_assert(!SPLITD || (DN % DS == 0 && NWG == 2), "the D = 512 form");
 };
 
-// x rounded to the nearest tf32 (ties away from zero: half of the dropped
-// 13 bits added to the magnitude, then cleared): a word a tf32 wgmma reads
-// exactly.  +-inf stay (a masked score's exponential is 0 either way).
-__device__ __forceinline__ float tf32_rn(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-
 __device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
   hi = make_float4(tf32_rn(x.x), tf32_rn(x.y), tf32_rn(x.z), tf32_rn(x.w));
   lo = make_float4(tf32_rn(x.x - hi.x), tf32_rn(x.y - hi.y), tf32_rn(x.z - hi.z), tf32_rn(x.w - hi.w));

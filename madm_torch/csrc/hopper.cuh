@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels K1 and K4
 // (flash_fwd_tma.cuh, under flash_attention.cu and flash_attention_packed.cu;
 // K1's fp32 body flash_fwd_tf32.cuh),
-// K3 and K5's bf16 body (flash_attention_bwd.cu), the sep-ASPP kernel K2
+// K3 and K5's bf16 body (flash_attention_bwd.cu; K3's fp32 body
+// flash_bwd_tf32.cuh), the sep-ASPP kernel K2
 // (aspp_fused.cu) and the 'full' head's K6 (dw_branches.cu) and K7
 // (matmul_argmax.cu): tensor maps for the Tensor Memory Accelerator (TMA),
 // mbarriers, named barriers and warpgroup matrix multiplies (wgmma).
@@ -416,10 +417,19 @@ template <> __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// ---- tf32 (the fp32 attention body, flash_fwd_tf32.cuh).  A tf32 wgmma
-// takes both shared-memory operands K-major only (no transpose bit), k = 8
-// fp32 words (32 bytes) a step, and reads each 32-bit word as tf32: the
-// body hands it words whose low 13 mantissa bits are already zero.
+// ---- tf32 (the fp32 attention bodies, flash_fwd_tf32.cuh and
+// flash_bwd_tf32.cuh).  A tf32 wgmma takes both shared-memory operands
+// K-major only (no transpose bit), k = 8 fp32 words (32 bytes) a step, and
+// reads each 32-bit word as tf32: the bodies hand it words whose low 13
+// mantissa bits are already zero.
+
+// x rounded to the nearest tf32 (ties away from zero: half of the dropped
+// 13 bits added to the magnitude, then cleared): a word a tf32 wgmma reads
+// exactly.  +-inf stay (a masked score's exponential is 0 either way).
+__device__ __forceinline__ float tf32_rn(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+
 // d (m64nN, fp32) += A (m64k8) B (k8nN): A and B from shared memory, K-major
 template <int N>
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);

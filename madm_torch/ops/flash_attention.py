@@ -13,7 +13,9 @@ K1's fp32 body runs on the tensor cores from tf32 pieces ("3xTF32",
 ``csrc/flash_fwd_tf32.cuh``) wherever TMA can address the tensors;
 ``attention_tf32x3_reference`` states its arithmetic (the rounded tf32
 split of ``tf32_split``, the products of the pieces, the key tiles' online
-softmax and the key-split partials merged in split order).
+softmax and the key-split partials merged in split order).  K3's fp32 body
+is 3xTF32 on TMA too (``csrc/flash_bwd_tf32.cuh``), and
+``attention_backward_tf32x3_reference`` states its arithmetic.
 ``flash_attention.launches`` and ``flash_attention_backward.launches`` count
 kernel launches.  ``forward_plan`` and ``backward_plan`` state, as pure
 functions of shape, strides and dtype, how the two kernels launch (body,
@@ -173,6 +175,45 @@ def attention_tf32x3_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out.permute(0, 2, 1, 3).contiguous(), lse.contiguous()
 
 
+def attention_backward_tf32x3_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                                        g: torch.Tensor, lse: torch.Tensor, scale: Optional[float] = None,
+                                        bq: int = 64, bk: int = 64, nsplit: int = 1,
+                                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's fp32 body in plain torch: (dq, dk, dv) in fp32 for the output
+    gradient ``g`` of ``o`` = attention(q, k, v), from the forward's ``o``
+    and its row log-sum-exp ``lse`` [B, H, Sq].  qs = q * (scale * log2(e))
+    in fp32 as K1's fp32 body forms it; P = exp2(qs k^T - lse * log2(e));
+    delta = rowsum(g o); dS = P (dP - delta) with dP = g v^T; every product
+    from tf32 pieces, lo hi + hi lo + hi hi (``_tf32_product``).  dV = P^T g
+    and dK = dS^T q * scale are summed over query tiles of ``bq`` rows, each
+    tile's product added in fp32, the tiles cut into ``nsplit`` contiguous
+    runs (run s takes tiles [s nqt // nsplit, (s + 1) nqt // nsplit)) whose
+    sums are added in split order; dQ = dS k * scale over key tiles of
+    ``bk``, each added in fp32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qscale = float(torch.tensor(scale, dtype=torch.float32) * torch.tensor(_LOG2E, dtype=torch.float32))
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    lse2 = lse.float() * torch.tensor(_LOG2E, dtype=torch.float32)
+    p = torch.exp2(_tf32_product("bqhd,bkhd->bhqk", qf * qscale, kf) - lse2[..., None])
+    delta = (gf * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, Sq, 1]
+    ds = p * (_tf32_product("bqhd,bkhd->bhqk", gf, vf) - delta)
+    sq, sk = q.shape[1], k.shape[1]
+    nqt = -(-sq // bq)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for sp in range(nsplit):
+        pk, pv = torch.zeros_like(kf), torch.zeros_like(vf)
+        for t in range(sp * nqt // nsplit, (sp + 1) * nqt // nsplit):
+            q0, q1 = t * bq, min((t + 1) * bq, sq)
+            pv = pv + _tf32_product("bhqk,bqhd->bkhd", p[:, :, q0:q1], gf[:, q0:q1])
+            pk = pk + _tf32_product("bhqk,bqhd->bkhd", ds[:, :, q0:q1], qf[:, q0:q1])
+        dk, dv = dk + pk, dv + pv
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, sk, bk):
+        dq = dq + _tf32_product("bhqk,bkhd->bqhd", ds[..., k0:k0 + bk], kf[:, k0:k0 + bk])
+    return dq * scale, dk * scale, dv
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"expected q [B,Sq,H,D], k/v [B,Sk,H,D]; got {q.shape}, {k.shape}, {v.shape}")
@@ -210,10 +251,10 @@ class Launch:
 @dataclass(frozen=True)
 class AttentionPlan:
     """How K1, K3, K4 or K5 runs a call: ``body`` "tma_wgmma" (bf16; K4's
-    "tma_wgmma_two_pass"), "tma_tf32x3" (K1's fp32 body on the tensor cores)
-    or "simt" (the other fp32 bodies, and K1's where TMA cannot address the
-    tensors); ``dn`` the head dim padded for the tensor cores (the SIMT
-    bodies' padded head dim); ``bq`` and ``bk`` the query rows and keys of a
+    "tma_wgmma_two_pass"), "tma_tf32x3" (K1's and K3's fp32 bodies on the
+    tensor cores) or "simt" (the other fp32 bodies, and K1's and K3's where
+    TMA cannot address the tensors); ``dn`` the head dim padded for the
+    tensor cores (the SIMT bodies' padded head dim); ``bq`` and ``bk`` the query rows and keys of a
     block's tiles (for K3, those of the dK/dV kernel; ``bk_dq``/``bq_dq``
     those of the dQ kernel); ``warpgroups`` the consumer warpgroups of the
     main kernel and ``split_d`` whether they share rows and split D (the
@@ -241,7 +282,8 @@ class AttentionPlan:
     def fills_card(self) -> bool:
         """Every launch but the small prep and reduction runs >= SM_COUNT blocks."""
         return all(l.blocks >= SM_COUNT for l in self.launches
-                   if l.kernel not in ("bwd_prep", "dkdv_reduce", "flash_fwd_combine"))
+                   if l.kernel not in ("bwd_prep", "dkdv_reduce", "flash_fwd_combine", "bwd_tf32_prep",
+                                       "dkdv_tf32_reduce"))
 
     @property
     def score_copies(self) -> int:
@@ -357,6 +399,71 @@ def _tf32_plan(b: int, sq: int, sk: int, h: int, d: int) -> AttentionPlan:
                          workspace_bytes=4 * nsplit * b * h * sq * (d + 2) if nsplit > 1 else 0)
 
 
+def _tf32_bwd_tile(dkdv: bool, dn: int, bt: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory bytes) of the dK/dV (``dkdv``) or
+    dQ kernel of K3's fp32 body, as ``BwdTile`` in csrc/flash_bwd_tf32.cuh
+    computes them: the A side's hi and lo boxes of [64][32] resident at
+    D <= 80; ring slots of the larger item (a score item: the streamed tile's
+    boxes, at D = 160 with the A side's, and for dK/dV the tile's lse2 and
+    delta; a product item: a transposed [DN][BT] tile's hi and lo), as many
+    as fit up to 4; the barriers and 1024 bytes of alignment."""
+    res = dn <= 80
+    nch = -(-dn // 32)
+    abox, bbox, tbox = 64 * 128, bt * 128, dn * 128
+    a_bytes = 4 * nch * abox if res else 0
+    s_item = (0 if res else 4 * abox) + 4 * (nch if res else 1) * bbox + (8 * bt if dkdv else 0)
+    slot = -(-max(s_item, 2 * (bt // 32) * tbox) // 1024) * 1024
+    stages = min(4, (SMEM_LIMIT - 1024 - a_bytes - 40) // slot)
+    return stages, 1024 + a_bytes + stages * slot + 8 * (1 + stages)
+
+
+def _tf32_bwd_bytes(b: int, sq: int, sk: int, h: int, d: int, nsplit: int) -> int:
+    """K3's fp32 workspace (``f32_bwd_plan`` in csrc/flash_bwd_tf32.cuh lays
+    it out alike, each array at a multiple of 256 bytes): lse2 and delta
+    [B, H, Sq rounded up to 64]; the hi and lo pieces of qs, dO, k, v
+    [B, S, H, D] and of q, dO, k transposed [B, H, D, S rounded up to 8];
+    the split dK/dV loop's partials."""
+    def up(x):
+        return -(-x // 256) * 256
+    sqs = -(-sq // 64) * 64
+    nq, nk = b * sq * h * d, b * sk * h * d
+    tq, tk = b * h * d * -(-sq // 8) * 8, b * h * d * -(-sk // 8) * 8
+    off = up(4 * b * h * sqs)
+    for size in (4 * b * h * sqs, 8 * nq, 8 * nq, 8 * nk, 8 * nk, 8 * tq, 8 * tq, 8 * tk):
+        off = up(off + size)
+    return off + (2 * 4 * nsplit * nk if nsplit > 1 else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def _tf32_bwd_plan(b: int, sq: int, sk: int, h: int, d: int) -> AttentionPlan:
+    """K3's fp32 TMA body's plan (``f32_bwd_plan`` in csrc/flash_bwd_tf32.cuh):
+    the prep kernel; the dK/dV kernel, 64 keys a block over query tiles of
+    64 (D <= 40) or 32, its query loop split as the bf16 body's; the
+    reduction where split; the dQ kernel, 64 queries a block over key tiles
+    of the same width."""
+    dn = next(x for x in (40, 80, 160) if d <= x)
+    bt = 64 if dn == 40 else 32
+    blocks = -(-sk // 64) * h * b
+    nsplit = 1 if blocks >= SM_COUNT else max(1, min(-(-SM_COUNT // blocks), -(-sq // bt) // 2))
+    stages, smem_kv = _tf32_bwd_tile(True, dn, bt)
+    smem_q = _tf32_bwd_tile(False, dn, bt)[1]
+    sqs = -(-sq // 64) * 64
+    launches = [Launch("bwd_tf32_prep", (-(-max(sqs, sk) // 32), h, 4 * b), 256, 0),
+                Launch("dkdv_tf32", (-(-sk // 64), h, b * nsplit), 128, smem_kv)]
+    if nsplit > 1:
+        launches.append(Launch("dkdv_tf32_reduce", (min(-(-b * sk * h * d // 256), 4 * SM_COUNT), 1, 1), 256, 0))
+    launches.append(Launch("dq_tf32", (-(-sq // 64), h, b), 128, smem_q))
+    return AttentionPlan("K3", "tma_tf32x3", h, dn, bt, 64, 1, False, stages, nsplit, 64, bt, sqs,
+                         tuple(launches), _tf32_bwd_bytes(b, sq, sk, h, d, nsplit))
+
+
+def _f32_bwd_addressable(d: int, ptrs: Sequence[int]) -> bool:
+    """Whether K3's fp32 TMA body takes contiguous tensors at ``ptrs``: D % 4
+    == 0 (TMA's 16-byte strides of the workspace's arrays, the float2
+    stores of the gradients) and every base 16-byte aligned."""
+    return d % 4 == 0 and d <= MAX_BWD_HEAD_DIM and all(p % 16 == 0 for p in ptrs)
+
+
 def forward_plan(b: int, sq: int, sk: int, h: int, d: int, dtype: torch.dtype,
                  tensors: Sequence[Tuple[int, Tuple[int, int, int]]] = ()) -> AttentionPlan:
     """K1's plan (``madm_flash_attention_fwd_plan`` and, for float32,
@@ -391,12 +498,19 @@ def forward_plan(b: int, sq: int, sk: int, h: int, d: int, dtype: torch.dtype,
 def backward_plan(b: int, sq: int, sk: int, h: int, d: int, dtype: torch.dtype,
                   ptrs: Sequence[int] = ()) -> AttentionPlan:
     """K3's plan for contiguous [B, S, H, D] tensors at addresses ``ptrs``
-    (``madm_flash_attention_bwd_plan`` in csrc/flash_attention_bwd.cu makes
-    the same choice).  bf16: the prep kernel, the dK/dV kernel over 128-key
-    tiles (64 at D=160), its query loop split until SM_COUNT blocks run (at least two q
-    tiles a split; fp32 partials, then a reduction in split order), and the
-    dQ kernel; float32: the SIMT body."""
+    (bf16: q, k, v, g, dq, dk, dv; float32: q, k, v, o, g, dq, dk, dv;
+    aligned if left out).  ``madm_flash_attention_bwd_plan`` and
+    ``madm_flash_attention_bwd_f32_plan`` in csrc/flash_attention_bwd.cu make
+    the same choice.  bf16: the prep kernel, the dK/dV kernel over 128-key
+    tiles (64 at D=160), its query loop split until SM_COUNT blocks run (at
+    least two q tiles a split; fp32 partials, then a reduction in split
+    order), and the dQ kernel, raising for tensors TMA cannot address;
+    float32: the 3xTF32 TMA body (``_tf32_bwd_plan``) where it can address
+    the tensors, the SIMT body where it cannot (D % 4 != 0, a misaligned
+    base)."""
     if dtype == torch.float32:
+        if _f32_bwd_addressable(d, ptrs):
+            return _tf32_bwd_plan(b, sq, sk, h, d)
         n = b * sq * h
         smem = 4 * (2 * 32 * 161 * 2 + 2 * 32 * 33 + 2 * 32)
         return AttentionPlan("K3", "simt", h, 160, 32, 32, launches=(
@@ -511,7 +625,9 @@ def flash_attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-_BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+_BWD_F32_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -521,7 +637,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors run ``attention_backward_reference`` (``o`` and ``lse`` are
     not needed); CUDA tensors launch kernel K3 with the forward's ``o`` and
     fp32 ``lse`` [B, H, Sq]: D <= 160, and in bf16 what ``backward_plan``
-    takes (D % 8 == 0, 16-byte aligned storage), else it raises."""
+    takes (D % 8 == 0, 16-byte aligned storage), else it raises; fp32 takes
+    the body ``backward_plan`` names, with its workspace."""
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, g, scale)
     _check(q, k, v)
@@ -536,17 +653,26 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v, o, lse = (t.contiguous() for t in (q, k, v, o, lse))
     g = g.to(q.dtype).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    plan = _backward_plan(b, sq, sk, h, d, q.dtype)
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.float32:
+        plan = backward_plan(b, sq, sk, h, d, q.dtype, [t.data_ptr() for t in (q, k, v, o, g, dq, dk, dv)])
+    else:
+        plan = _backward_plan(b, sq, sk, h, d, q.dtype)
         backward_plan(b, sq, sk, h, d, q.dtype, [t.data_ptr() for t in (q, k, v, g, dq, dk, dv)])
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # K3's workspace: the fp32 delta [B, H, Sq], or the bf16 body's scratch
-    delta = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=q.device)
-    lib, fn = _bind("flash_attention_bwd", "madm_flash_attention_bwd", _BWD_ARGS)
-    with _on_device(q.device):
-        err = fn(_DTYPES[q.dtype], *(t.data_ptr() for t in (q, k, v, o, g, lse, delta, dq, dk, dv)),
-                 b, sq, sk, h, d, float(scale), torch.cuda.current_stream().cuda_stream)
+    # K3's workspace: the body's scratch (the fp32 SIMT body's: delta [B, H, Sq])
+    ws = torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if q.dtype == torch.float32:
+        lib, fn = _bind("flash_attention_bwd", "madm_flash_attention_bwd_f32", _BWD_F32_ARGS)
+        with _on_device(q.device):
+            err = fn(*(t.data_ptr() for t in (q, k, v, o, g, lse, ws)), plan.workspace_bytes,
+                     *(t.data_ptr() for t in (dq, dk, dv)), b, sq, sk, h, d, float(scale), stream)
+    else:
+        lib, fn = _bind("flash_attention_bwd", "madm_flash_attention_bwd", _BWD_ARGS)
+        with _on_device(q.device):
+            err = fn(*(t.data_ptr() for t in (q, k, v, o, g, lse, ws, dq, dk, dv)), b, sq, sk, h, d,
+                     float(scale), stream)
     kernels.check(lib, err, "flash_attention_backward launch")
     flash_attention_backward.launches += 1
     return dq, dk, dv

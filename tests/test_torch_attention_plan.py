@@ -121,11 +121,12 @@ def test_plans_refuse_head_dims_off_the_tma_grid():
         backward_plan(1, 64, 64, 2, 36, torch.bfloat16, [0] * 7)
     with pytest.raises(ValueError, match="aligned"):
         backward_plan(1, 64, 64, 2, 40, torch.bfloat16, [0, 0, 0, 4, 0, 0, 0])
-    # float32: K1 takes its 3xTF32 TMA body wherever TMA can address the
-    # tensors (fp32 needs D % 4 == 0, not 8) and SIMT elsewhere; K3 takes SIMT
+    # float32: K1 and K3 take their 3xTF32 TMA bodies wherever TMA can
+    # address the tensors (fp32 needs D % 4 == 0, not 8) and SIMT elsewhere
     assert forward_plan(1, 64, 64, 2, 36, torch.float32, [contiguous(1, 64, 2, 36)] * 3).body == "tma_tf32x3"
     assert forward_plan(1, 64, 64, 2, 34, torch.float32, [contiguous(1, 64, 2, 34)] * 3).body == "simt"
-    assert backward_plan(1, 64, 64, 2, 36, torch.float32).body == "simt"
+    assert backward_plan(1, 64, 64, 2, 36, torch.float32).body == "tma_tf32x3"
+    assert backward_plan(1, 64, 64, 2, 34, torch.float32).body == "simt"
 
 
 @pytest.mark.parametrize("sq,sk,h,d", [(256, 77, 2, 40), (320, 64, 1, 80), (192, 130, 2, 16)])

@@ -25,7 +25,7 @@ from madm_torch.ops.flash_attention import (
     tf32,
     tf32_split,
 )
-from madm_torch.tf32_variants import EDITS
+from madm_torch.tf32_variants import BWD_EDITS, EDITS
 
 ATOL = 2e-5  # fp32 both sides, as tests/test_torch_attention.py holds the twin to the JAX kernel
 MERGE_TOL = 1e-6  # of max(1, max|ref|): the split merge only reorders fp32 sums
@@ -208,15 +208,17 @@ def test_transposed_v_tiles_as_the_kernel_writes_and_reads_them(dvw, bk, cg):
         np.testing.assert_allclose(out, p @ v[w], rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("name", sorted(EDITS))
+@pytest.mark.parametrize("name", sorted(EDITS) + sorted(BWD_EDITS))
 def test_tf32_variant_edits_find_their_lines(name):
     """Each build of ``madm_torch.tf32_variants`` (the kept body, fewer tf32
-    pieces, the one-product control) edits lines that stand once in
-    csrc/flash_fwd_tf32.cuh, and the edited text differs from the source
-    (a variant that changed nothing would compare the body with itself)."""
-    src = (CSRC / "flash_fwd_tf32.cuh").read_text()
+    pieces, the one-product controls, K3's delta and SIMT builds) edits
+    lines that stand once in csrc/flash_fwd_tf32.cuh (K1's) or
+    csrc/flash_bwd_tf32.cuh (K3's), and the edited text differs from the
+    source (a variant that changed nothing would compare the body with
+    itself)."""
+    src = (CSRC / ("flash_bwd_tf32.cuh" if name in BWD_EDITS else "flash_fwd_tf32.cuh")).read_text()
     text = src
-    for old, new in EDITS[name]:
+    for old, new in {**EDITS, **BWD_EDITS}[name]:
         assert src.count(old) == 1, old
         text = text.replace(old, new)
     assert (text == src) == (name == "kept")
